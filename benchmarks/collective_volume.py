@@ -1,7 +1,7 @@
 """Static collective-traffic accounting for the sharded tracker step.
 
-Round-1 verdict: "no check on what collectives XLA actually inserts" /
-"no test or HLO inspection verifies communication volume".  The HLO
+What collectives does XLA actually insert, and how many bytes do they
+move?  The HLO
 *absence* checks live in tests/test_distributed_resample.py (no
 bank-scale all-gather); this benchmark reports the *presence* side: every
 collective op in the compiled sharded step, with result bytes, per mesh
@@ -19,9 +19,9 @@ Static HLO counts are a per-frame *upper bound*: collectives inside
 `conditional` branches (init vs track) are counted once but execute on
 the frames that take the branch.
 
-Run on the virtual CPU mesh (no TPUs needed):
+Run on the virtual CPU mesh (no accelerator needed):
     python benchmarks/collective_volume.py [--particles 65536]
-Writes COLLECTIVES_r05.json next to the repo root when --write is given.
+Writes COLLECTIVES.json next to the repo root when --write is given.
 """
 
 from __future__ import annotations
@@ -143,7 +143,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--particles", type=int, default=65536)
     ap.add_argument("--devices", type=int, nargs="*", default=[2, 4, 8])
-    ap.add_argument("--write", action="store_true", help="write COLLECTIVES_r05.json")
+    ap.add_argument("--write", action="store_true", help="write COLLECTIVES.json")
     args = ap.parse_args()
 
     rows = []
@@ -161,7 +161,7 @@ def main():
 
     if args.write:
         path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                            "COLLECTIVES_r05.json")
+                            "COLLECTIVES.json")
         with open(path, "w") as f:
             json.dump(
                 {

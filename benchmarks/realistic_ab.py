@@ -1,5 +1,5 @@
 """Adversarial A/B: reference CPU pipeline vs engine on the realistic golden
-(VERDICT r4 missing #1) and on the outlier config (VERDICT r4 #2).
+and on the outlier config.
 
 The reference's operative validation is real-bag replay
 (pf_mpe/launch/UAV_Target.launch:63-64); in this environment the honest
@@ -16,7 +16,7 @@ Also re-runs the outlier-config A/B (1 occlusion + 2 spurious
 blobs/frame, the reference's own fault-injection mechanism) at matched
 particle counts, 5 seeds per side.
 
-Writes the rows consumed by ACCURACY_r05.json.  Usage:
+Prints the A/B rows as JSON.  Usage:
     python benchmarks/realistic_ab.py [--particles 500] [--out FILE]
 """
 

@@ -1,5 +1,4 @@
-"""Parameter-sweep harness — the test1/2/3.launch analogue (VERDICT r4
-missing #2 / next #8).
+"""Parameter-sweep harness — the test1/2/3.launch analogue.
 
 The reference ships 14 launch files whose sweep variants rerun the same
 bag with different noise bounds / particle counts / tolerances
@@ -19,7 +18,7 @@ negated value (the reference's launch files sweep them in pairs).
 
 Usage:
     python benchmarks/sweep.py configs/sweeps/reference_grid.yaml \
-        [--out SWEEP_r05.json] [--device cpu]
+        [--out sweep.json] [--device cpu]
 """
 
 from __future__ import annotations

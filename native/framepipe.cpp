@@ -1,4 +1,4 @@
-// framepipe: native frame-ingestion runtime for the TPU tracker.
+// framepipe: native frame-ingestion runtime for the tracker.
 //
 // Role parity with the reference's ROS image transport + nodelet zero-copy
 // path (pf_mpe/src/monocular_pose_estimator.cpp:245-268 image callback,

@@ -1,36 +1,33 @@
-"""pf_monocular_pose_estimator_tpu — TPU-native LED-marker 6-DoF pose tracking.
+"""pf_monocular_pose_estimator_tpu — LED-marker 6-DoF pose tracking in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 ObiRobotics/pf_monocular_pose_estimator (PF-MPE): LED blob detection,
 combinatorial P3P initialisation, particle-filter tracking and Gauss-Newton
 pose refinement — expressed as fixed-shape, functionally-pure, batched array
-programs that scale the particle bank across a TPU mesh.
+programs that run on a GPU and shard the particle bank across a device mesh.
 
-Layer map (cf. /root/repo/SURVEY.md §7):
+Layer map (cf. SURVEY.md §7):
   geometry/  SE(3) exp/log, pinhole camera + plumb-bob distortion, Umeyama
   solvers/   batched Ferrari quartic + Kneip P3P, combinatoric index tables
-  ops/       image kernels: threshold+blur, connected components, moments
-  pf/        particle filter: propagate, weight, resample, refine
+  ops/       image programs: threshold+blur, connected components, moments
+  pf/        particle filter: propagate, weight, resample, refine; the
+             fused propagate+weight GPU kernel (pallas_step.py)
   tracker/   per-frame state machine: init / track / recover, multi-target
   parallel/  mesh sharding of the particle bank, distributed resampling
   io/        marker YAML, camera calib, synthetic sequences, metrics, viz
-  utils/     config, fail-flag taxonomy, checkpointing
+  utils/     config, platform routes, fail-flag taxonomy, checkpointing
 """
 
 __version__ = "0.1.0"
 
-# TPU MXU matmuls default to bfloat16 operand rounding, which costs the
-# geometry pipeline ~3 decimal digits: measured on v5e (round 4,
-# benchmarks/_ori_iso*.json), default precision degraded the clean-orbit
-# engine trajectory from 0.93 deg / 7.1 mm (CPU, exact f32) to
-# 2.4-7.8 deg / 8.9-83 mm — the 4x4 pose composes, marker projections
-# and Gauss-Newton normal equations are all small matmuls whose bf16
-# rounding lands directly in the pixel residuals.  Full-f32 passes cost
-# ~6x on the MXU, but the engine's hot loops (fused PF propagate+weight,
-# detection, batched GN) live in Pallas kernels with their own exact-f32
-# arithmetic, so the global default only touches the small XLA matmuls:
-# measured fps impact at 100k particles is within noise.  Opt out (e.g.
-# to A/B the effect) with PFMPE_DEFAULT_MATMUL_PRECISION=default.
+# On the GPU, XLA may run float32 matmuls in TF32, which keeps about three
+# decimal digits.  The geometry pipeline's 4x4 pose composes, marker
+# projections, blob-moment matmuls, blur convolutions and Gauss-Newton
+# normal equations are small matmuls whose rounding lands directly in the
+# pixel residuals, so the library asks for full float32 ("highest") for
+# the whole process.  Its cost in speed and accuracy on the card is not
+# measured yet.  Opt out (e.g. to A/B the effect) with
+# PFMPE_DEFAULT_MATMUL_PRECISION=default.
 import os as _os
 
 if _os.environ.get("PFMPE_DEFAULT_MATMUL_PRECISION", "").lower() != "default":

@@ -6,7 +6,7 @@ Functional parity targets (behaviour, not code) in the reference engine:
   * skew matrix      — pf_mpe_lib/src/pose_estimator.cpp:2298-2303
   * constant-velocity prediction — pose_estimator.cpp:995-1010
 
-Design notes (TPU-first):
+Design notes (fixed-shape, batched):
   * All ops broadcast over arbitrary leading batch dimensions so a particle
     bank of shape (N, 4, 4) is first-class.
   * Branches of the reference (theta == 0 special cases) become

@@ -29,9 +29,8 @@ import dataclasses
 import os
 from typing import Any, Dict
 
-import yaml
-
 from ..utils.config import TrackerConfig
+from .markers import load_yaml
 
 _VALID_TRACKER_FIELDS = {f.name for f in dataclasses.fields(TrackerConfig)}
 
@@ -39,8 +38,7 @@ _VALID_TRACKER_FIELDS = {f.name for f in dataclasses.fields(TrackerConfig)}
 def load_experiment(path: str) -> Dict[str, Any]:
     """Parse an experiment YAML; resolves camera/markers/sequence paths
     relative to the file and validates tracker override names."""
-    with open(path) as f:
-        raw = yaml.safe_load(f) or {}
+    raw = load_yaml(path) or {}
     base = os.path.dirname(os.path.abspath(path))
 
     def resolve(p):

@@ -13,9 +13,22 @@ from __future__ import annotations
 from typing import List
 
 import numpy as np
-import yaml
 
 from ..geometry.camera import Camera
+
+
+def load_yaml(path: str):
+    """Parse a YAML file.  PyYAML is an optional dependency (the
+    synthetic main path needs none), imported only here."""
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError(
+            f"reading {path} needs PyYAML (pip install pyyaml); the synthetic "
+            "sequences and .npz/.pfsq inputs do not"
+        ) from e
+    with open(path) as f:
+        return yaml.safe_load(f)
 
 
 def load_marker_positions(path: str, markers_per_object: List[int] | None = None):
@@ -25,8 +38,7 @@ def load_marker_positions(path: str, markers_per_object: List[int] | None = None
     tracked object.  With `markers_per_object=None` the whole list is one
     object (numUAV=1 behaviour).
     """
-    with open(path) as f:
-        data = yaml.safe_load(f)
+    data = load_yaml(path)
     pts = np.array(
         [[p["x"], p["y"], p["z"], 1.0] for p in data["marker_positions"]], dtype=np.float32
     )
@@ -47,8 +59,7 @@ def load_marker_positions(path: str, markers_per_object: List[int] | None = None
 def load_camera_calibration(path: str) -> Camera:
     """Load a camera YAML: {fx, fy, cx, cy, distortion: [k1,k2,p1,p2,k3],
     width, height} (the K/D pair of README.md:137-143)."""
-    with open(path) as f:
-        data = yaml.safe_load(f)
+    data = load_yaml(path)
     return Camera.create(
         fx=data["fx"],
         fy=data["fy"],

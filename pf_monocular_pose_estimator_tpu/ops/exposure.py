@@ -6,7 +6,7 @@ tracks the blob-area / ROI-area fraction across frames in function-static
 counters and, after 500 consecutive low/high frames, shells out to the
 camera driver via `system("rosrun dynamic_reconfigure dynparam set ...")`.
 
-TPU redesign: the hidden static counters become an explicit `ExposureState`
+Functional redesign: the hidden static counters become an explicit `ExposureState`
 pytree threaded through the tracker, and the side effect becomes a returned
 recommendation (`exposure_us`) the host I/O layer may apply to whatever
 camera transport it owns.  Same thresholds (0.013 / 0.037), same 500-frame

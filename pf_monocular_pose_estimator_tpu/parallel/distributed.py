@@ -1,34 +1,35 @@
-"""Multi-host entry: jax.distributed initialisation + frame broadcast.
+"""Multi-process entry: jax.distributed initialisation + frame broadcast.
 
 The reference is a single process (SURVEY.md §1: "no scheduler, no
-distributed communication layer"); scaling across hosts comes from
-BASELINE.json configs[4] — a 1M-particle bank sharded across a multi-host
-pod slice.  This module is the missing launcher tier:
+distributed communication layer"); scaling across devices comes from
+BASELINE.json configs[4] — a 1M-particle bank sharded over a mesh.  On
+one host a single process drives every card (the cards are joined all to
+all by NVLink and `make_sharded_tracker` needs nothing from this
+module).  This module is the launcher tier for jobs of several
+processes:
 
-  * `initialize_distributed` wires `jax.distributed.initialize` (DCN
-    rendezvous; ICI collectives inside each slice);
-  * `make_pod_mesh` builds the ('targets', 'particles') mesh over ALL
-    devices in the job, hosts included — the same axis names the
-    single-host path uses, so `make_sharded_tracker` /
-    `make_sharded_multi_tracker` run unchanged on a pod;
-  * `broadcast_frame` turns each host's process-local camera frame into
-    a fully-replicated global array (host->device broadcast over DCN +
-    ICI) via `jax.make_array_from_process_local_data`;
+  * `initialize_distributed` wires `jax.distributed.initialize` (the
+    coordinator address, process count and id are always explicit);
+  * `make_job_mesh` builds the ('targets', 'particles') mesh over ALL
+    devices in the job — the same axis names the single-process path
+    uses, so `make_sharded_tracker` / `make_sharded_multi_tracker` run
+    unchanged;
+  * `broadcast_frame` turns each process's local camera frame into a
+    fully-replicated global array via
+    `jax.make_array_from_process_local_data`;
   * `run_multihost` is the per-process main: every process executes the
-    same program; collectives (the scalar all-gathers + ppermute ring of
-    parallel/resample.py, psum weight normalisation) ride ICI within a
-    slice and DCN across.
+    same program; the collectives (the scalar all-gathers + ppermute ring
+    of parallel/resample.py, the psum weight normalisation) go to NCCL.
 
-Usage (one command per host):
+Usage (one command per process):
 
     python -m pf_monocular_pose_estimator_tpu.parallel.distributed \
-        --coordinator host0:8476 --num-processes 4 --process-id $ID \
+        --coordinator localhost:8476 --num-processes 2 --process-id $ID \
         --particles 1000000
 
-This environment exposes one chip, so multi-host execution cannot run
-here; the wiring is validated single-process by
+The wiring is tested single-process by
 tests/test_parallel.py::test_multihost_entry_single_process and the
-virtual-mesh dryrun (`__graft_entry__.dryrun_multichip`).
+virtual-mesh dry run (`__graft_entry__.dryrun_multichip`).
 """
 
 from __future__ import annotations
@@ -57,11 +58,11 @@ def initialize_distributed(
     return jax.process_index()
 
 
-def make_pod_mesh(target_devices: int = 1):
+def make_job_mesh(target_devices: int = 1):
     """('targets', 'particles') mesh over every device in the job
-    (all hosts).  Mirrors parallel.mesh.make_mesh but over the global
-    device list, laid out so the particles axis stays contiguous within
-    each host (collectives prefer ICI hops over DCN)."""
+    (all processes).  Mirrors parallel.mesh.make_mesh but over the
+    global device list, laid out so the particles axis stays contiguous
+    within each process."""
     from jax.sharding import Mesh
 
     devices = jax.devices()  # global across processes
@@ -112,7 +113,7 @@ def run_multihost(argv=None):
     config = TrackerConfig(
         n_particles=args.particles, min_blob_area=8.0, pf_max_retries=8
     )
-    mesh = make_pod_mesh(target_devices=args.targets)
+    mesh = make_job_mesh(target_devices=args.targets)
     step = make_sharded_tracker(
         camera, markers, jnp.ones((markers.shape[0],), bool), config, mesh
     )

@@ -4,23 +4,23 @@ The reference is a single-threaded estimator (SURVEY.md §2: no DP/TP/PP,
 no comm backend); the scale axes here come from BASELINE.json's north
 star: shard the particle bank over a `particles` mesh axis and the
 per-target banks over a `targets` axis, with weight normalisation / ESS /
-resampling handled by XLA-inserted collectives (psum / all_gather) over
-ICI, and the camera frame replicated to all devices.
+resampling done by collectives (psum / all_gather / ppermute, which XLA
+hands to NCCL on GPUs), and the camera frame replicated to all devices.
 
 Design notes:
   * The whole tracker step is one jit; `NamedSharding` annotations on the
     bank-shaped leaves are enough for GSPMD to partition propagation,
     projection and weighting (embarrassingly parallel over particles) and
-    to insert the gather/psum pair for the resampling CDF — the only
-    cross-particle communication in the loop, exactly as SURVEY.md §5's
-    "long-context" note predicts.
-  * Multi-host: the same code runs under `jax.distributed.initialize`;
-    the mesh then spans hosts and the frame broadcast rides DCN.
+    to insert the psum of the weight moments.  Resampling runs the
+    explicit distributed scheme of parallel/resample.py.
+  * The cards of one host are joined all to all by NVLink, so every card
+    reaches every other at the same rate: the mesh shape follows the
+    algorithm (targets x particles), not a topology.  One process drives
+    all of them; several hosts run the same program under
+    `jax.distributed.initialize` (parallel/distributed.py).
 """
 
 from __future__ import annotations
-
-import dataclasses
 
 from typing import Optional
 
@@ -32,7 +32,9 @@ from ..geometry.camera import Camera
 from ..ops.exposure import ExposureState
 from ..tracker.state import TargetState
 from ..tracker.step import tracker_step
+from ..utils.backend import pf_route
 from ..utils.config import TrackerConfig
+from .pf_kernels import make_sharded_pf_fn
 
 
 def make_mesh(
@@ -96,38 +98,14 @@ def shard_target_state(state: TargetState, mesh: Mesh, batched: bool = False) ->
     )
 
 
-def _spmd_hooks(camera, config, mesh, pf_pallas):
-    """Resolve the tracker's SPMD hooks (pf_fn, wrap_replicated) and the
-    possibly-adjusted config for a mesh-sharded step.
-
-    pf_pallas: "auto" runs the shard_map'd fused Pallas kernel on TPU
-    backends (parallel.pf_kernels — single-chip kernel speed per shard);
-    "interpret" forces it in Pallas interpret mode (CPU equivalence
-    tests); "off" keeps the GSPMD-partitioned XLA SoA path (the round-3
-    behaviour).
-    """
-    from .pf_kernels import make_sharded_pf_fn, replicated
-
-    on_accel = jax.default_backend() != "cpu"
-    interpret = pf_pallas == "interpret"
-    use_pf = (
-        config.use_fused_pf_kernel
-        and pf_pallas != "off"
-        and (on_accel or interpret)
-    )
-    if use_pf:
-        pf_fn = make_sharded_pf_fn(mesh, camera, config, interpret=interpret)
-    else:
-        pf_fn = None
-        # no shard_map hook -> the bank-wide kernels must not reach GSPMD
-        config = dataclasses.replace(
-            config, use_pallas_weight=False, use_fused_pf_kernel=False
-        )
-    # replicated-operand Pallas (detect front-end, batched GN) rides a
-    # manual-sharding wrapper on accelerators; on CPU the backend gates
-    # inside the tracker skip Pallas anyway
-    wrap = (lambda fn: replicated(mesh, fn)) if on_accel else None
-    return config, pf_fn, wrap
+def _pf_hook(camera, config, mesh, interpret):
+    """The sharded step's PF hook: the shard_map'd fused kernel when the
+    platform's route is the kernel (utils/backend.py) or the caller asks
+    for the kernel in interpret mode (CPU tests); otherwise None, and
+    GSPMD partitions the XLA SoA path."""
+    if interpret or pf_route() == "triton":
+        return make_sharded_pf_fn(mesh, camera, config, interpret=interpret)
+    return None
 
 
 def make_sharded_tracker(
@@ -137,9 +115,9 @@ def make_sharded_tracker(
     config: TrackerConfig,
     mesh: Mesh,
     resample_reach: int = 1,
-    pf_pallas: str = "auto",
     payload_window: int | str | None = "auto",
     cdf_chunk: int | None = None,
+    interpret: bool = False,
 ):
     """Jitted single-target step with the bank sharded over 'particles'.
 
@@ -151,10 +129,9 @@ def make_sharded_tracker(
     (`parallel.resample`): scalar-only global collectives + a
     reach-limited ppermute ring — never an all-gather of the (16, N)
     bank (pinned by tests/test_distributed_resample.py's HLO check).
-    The PF propagate+weight runs the fused Pallas kernel PER SHARD via
-    shard_map (`parallel.pf_kernels`) — the sharded program keeps
-    single-chip kernel speed instead of falling back to the XLA SoA
-    path (see pf_pallas in `_spmd_hooks`).
+    Where the platform's PF route is the fused kernel, it runs PER SHARD
+    via shard_map (`parallel.pf_kernels`); interpret=True forces it in
+    the Pallas interpreter (CPU tests).
 
     payload_window / cdf_chunk pass straight through to
     `make_distributed_resampler`: the window bounds the ring payload
@@ -169,7 +146,7 @@ def make_sharded_tracker(
 
     markers_h = jnp.asarray(markers_h)
     marker_mask = jnp.asarray(marker_mask, bool)
-    config, pf_fn, wrap = _spmd_hooks(camera, config, mesh, pf_pallas)
+    pf_fn = _pf_hook(camera, config, mesh, interpret)
     specs = _state_shardings(mesh)
     state_shardings = jax.tree_util.tree_map(lambda s: NamedSharding(mesh, s), specs)
     repl = NamedSharding(mesh, P())
@@ -181,7 +158,7 @@ def make_sharded_tracker(
     def _step(state, image, t):
         return tracker_step(
             state, image, t, camera, markers_h, marker_mask, config,
-            resample_fn=resampler, pf_fn=pf_fn, wrap_replicated=wrap,
+            resample_fn=resampler, pf_fn=pf_fn,
         )
 
     return jax.jit(
@@ -198,10 +175,10 @@ def make_sharded_multi_tracker(
     marker_masks,  # (T, M)
     config: TrackerConfig,
     mesh: Mesh,
-    pf_pallas: str = "auto",
     resample_reach: int = 1,
     payload_window: int | str | None = "auto",
     cdf_chunk: int | None = None,
+    interpret: bool = False,
 ):
     """Multi-target step: targets vmapped and sharded over 'targets',
     each target's bank sharded over 'particles'.
@@ -211,13 +188,14 @@ def make_sharded_multi_tracker(
     a batch axis over the mesh instead of a serial host loop.
     resample_reach / payload_window / cdf_chunk: see
     `make_sharded_tracker` (per-target clip diagnostics surface in
-    FrameResult.resample_clipped).
+    FrameResult.resample_clipped) and interpret: see
+    `make_sharded_tracker`.
     """
     markers_h = jnp.asarray(markers_h)
     marker_masks = jnp.asarray(marker_masks, bool)
     # the pf_fn hook takes the marker set as a traced operand, so one
     # hook serves every target under the vmap
-    config, pf_fn, wrap = _spmd_hooks(camera, config, mesh, pf_pallas)
+    pf_fn = _pf_hook(camera, config, mesh, interpret)
     specs = _state_shardings(mesh, batched=True)
     state_shardings = jax.tree_util.tree_map(lambda s: NamedSharding(mesh, s), specs)
     repl = NamedSharding(mesh, P())
@@ -232,7 +210,7 @@ def make_sharded_multi_tracker(
     def _one(state, image, t, markers, mask):
         return tracker_step(
             state, image, t, camera, markers, mask, config,
-            resample_fn=resampler, pf_fn=pf_fn, wrap_replicated=wrap,
+            resample_fn=resampler, pf_fn=pf_fn,
         )
 
     def _step(states, image, t):

@@ -1,51 +1,29 @@
-"""shard_map wrappers that keep the Pallas kernels alive under mesh
-sharding.
+"""shard_map wrapper that runs the fused PF kernel under mesh sharding.
 
 GSPMD cannot auto-partition a `pallas_call` whose operands are sharded
-over the lane axis — round 3 therefore force-disabled every Pallas
-kernel in the mesh-sharded step, silently running the ~3-4x slower XLA
-SoA path per chip.  The fix is manual SPMD: propagate+weight is
-embarrassingly parallel over the particle axis, so each shard runs the
-fused kernel (pf/pallas_step.py) on its local (16, N/P) block inside a
-`shard_map`.  Two ingredients make the sharded program BIT-IDENTICAL
-to the unsharded one (pinned by tests/test_sharded_pallas.py):
+over the lane axis.  Propagate+weight is embarrassingly parallel over
+the particle axis, so each shard runs the fused kernel
+(pf/pallas_step.py) on its local (16, N/P) block inside a `shard_map`.
+Two ingredients make the sharded program compute what the unsharded one
+computes (pinned by tests/test_sharded_pallas.py):
 
-  * the kernel's threefry draws are a pure counter hash of the GLOBAL
-    particle index, so each shard passes `lane_offset = axis_index * S`
-    and `n_total = N` and recomputes exactly its slice of the global
-    draw stream (zero communication);
+  * the uniform draws are a pure counter hash of the GLOBAL particle
+    index, so each shard passes `lane_offset = axis_index * S` and
+    `n_total = N` and recomputes exactly its slice of the global draw
+    stream (zero communication);
   * the candidate lanes 0/1 (current/predicted pose pins,
     pose_estimator.cpp:545-551) are pinned by global lane index, so
     only shard 0 writes them.
-
-`replicated()` covers the OTHER Pallas kernels in the step (detection
-front-end, batched GN): their operands are replicated (one camera
-frame, one winning particle), so each device simply runs the whole
-kernel redundantly under manual sharding — the same work GSPMD's
-replication would do, without asking the partitioner to reason about a
-custom call.
 """
 
 from __future__ import annotations
 
-from functools import partial
-
 import jax
-import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..geometry.camera import Camera
 from ..pf.pallas_step import fused_propagate_weight_pallas
 from ..utils.config import TrackerConfig
-
-
-def replicated(mesh: Mesh, fn):
-    """Run `fn` redundantly per device under manual sharding (all
-    operands and results replicated).  Lets Pallas kernels on
-    replicated data ride inside a GSPMD-partitioned program."""
-    return jax.shard_map(
-        fn, mesh=mesh, in_specs=P(), out_specs=P(), check_vma=False
-    )
 
 
 def make_sharded_pf_fn(
@@ -56,8 +34,8 @@ def make_sharded_pf_fn(
     interpret: bool = False,
 ):
     """Build the tracker's `pf_fn` hook: one fused propagate+weight pass
-    over the bank, each shard running the Pallas kernel on its local
-    block.  Signature matches tracker/step.py::pf_compute's hook call:
+    over the bank, each shard running the kernel on its local block.
+    Signature matches tracker/step.py::pf_compute's hook call:
 
         pf_fn(key, resampled16, current_pose, predicted, prediction,
               cam_move_inv, noise, fac_t, fac_r, tracking, apply_pred,
@@ -68,15 +46,13 @@ def make_sharded_pf_fn(
     with bank16 (16, N) sharded P(None, axis) and weights (N,) P(axis).
     The marker set rides as a traced operand (only its capacity M is
     baked in), so one hook serves every target of a vmapped
-    multi-target step.
+    multi-target step.  interpret=True runs the kernel in the Pallas
+    interpreter (CPU tests).
     """
     n = config.n_particles
     p = mesh.shape[axis]
     assert n % p == 0, f"n_particles={n} must divide the {axis} axis ({p})"
     local = n // p
-    # interpret (CPU test) builds keep the straight kernel's u01-as-input
-    # form; hardware uses the folded in-kernel-draw kernel when enabled
-    folded = config.use_folded_pf_kernel and not interpret
 
     def body(k, resampled16, current_pose, predicted, prediction,
              cam_move_inv, noise, fac_t, fac_r, tracking, apply_pred,
@@ -88,16 +64,14 @@ def make_sharded_pf_fn(
             cam_move_inv, noise, fac_t, fac_r, tracking, apply_pred,
             inflation, camera, markers_h, marker_mask, det_xy, det_mask,
             tol_pf, tol_init, downgrade, num_markers_score,
-            want_pairs=False, folded=folded, interpret=interpret,
-            lane_offset=off, n_total=n,
+            interpret=interpret, lane_offset=off, n_total=n,
         )
 
     repl = P()
-    mapped = jax.shard_map(
+    return jax.shard_map(
         body,
         mesh=mesh,
         in_specs=(repl, P(None, axis)) + (repl,) * 18,
         out_specs=(P(None, axis), P(axis)),
         check_vma=False,
     )
-    return mapped

@@ -32,11 +32,9 @@ the `particles` mesh axis:
      neighbour — less than one naive 16·S bank block even at P=2), then
      resolves all S of its draws against the concatenated neighbour
      CDFs with the same two-sort merge scheme as
-     `pf.soa.stratified_resample_soa` (sorts, never searchsorted: XLA
-     TPU lowers `searchsorted(method="sort")` to an argsort + an
-     N-scatter, and scatter serialises — measured 1.1 ms per call at
-     N=100k, see the round-3 negative results) and gathers the ancestor
-     columns with ONE take from the concatenated block.  Draws whose
+     `pf.soa.stratified_resample_soa` (sorts, never searchsorted) and
+     gathers the ancestor columns with ONE take from the concatenated
+     block.  Draws whose
      ancestor lies beyond the reach are clamped to the shard's
      most-copied particle and counted in the returned diagnostics
      (zero in any non-degenerate tracking state; `reach` is
@@ -71,8 +69,9 @@ class DistResampleOut(NamedTuple):
     # (16, N) sharded over 'particles'.  Only the 12 VARYING pose rows
     # travel the ring; rows 12-15 of every output column are the
     # re-synthesised rigid-transform bottom row (0, 0, 0, 1) — exact for
-    # any bank of poses (the invariant pf.pallas_step.bank_top_pin
-    # documents), NOT a generic row passthrough.
+    # any bank of poses (every pose enters the bank from exp/compose/P3P
+    # paths that write the constant row, and composes preserve it; see
+    # tests/test_pallas_step.py), NOT a generic row passthrough.
     resampled: jnp.ndarray
     counts: jnp.ndarray  # (N,) global copy count per input particle
     most: jnp.ndarray  # replicated int32: global index of most-copied
@@ -138,7 +137,7 @@ def _resample_shard(
 
     # -- 1. width-independent chunked CDF (normalised).  The chunk-sum
     # all_gather is the ONLY collective here: the global total is its
-    # last prefix entry (no separate psum — one less DCN round trip per
+    # last prefix entry (no separate psum — one less collective per
     # frame), and the degenerate-total fallback switches to the CLOSED
     # FORM of the uniform CDF, which is bit-identical to running the
     # chunked summation over all-ones weights ((j+1) is exact in f32
@@ -218,8 +217,8 @@ def _resample_shard(
             blocks_cdf.append(nb_cdf)
             srcs.append((idx - delta) % p)
 
-    # -- 5. per-block ancestor counts via the two-sort merge (no
-    # searchsorted: its sort method scatters, and TPU scatter serialises)
+    # -- 5. per-block ancestor counts via the two-sort merge (the same
+    # scheme as pf.soa.stratified_resample_soa; no searchsorted)
     lens = [b.shape[0] for b in blocks_cdf]
     vals = jnp.concatenate([u] + blocks_cdf)
     bits = jax.lax.bitcast_convert_type(vals.astype(jnp.float32), jnp.uint32)
@@ -295,33 +294,22 @@ def _resample_shard(
     n_clipped = jnp.sum((~found).astype(jnp.int32))
     fallback = jnp.argmax(counts)
 
-    # -- 7. ONE gather from the concatenated neighbour blocks.  On TPU
-    # the gather is flanked by the Pallas layout pins: XLA prefers the
-    # transposed {0,1} layout for a lane-axis gather's operand/result,
-    # and without the pins that preference propagates out of the shard
-    # body into every carry the bank crosses (measured ~160 us per
-    # 8x-inflated bank copy at N=100k — same leak the unsharded path
-    # pins in tracker/step.py's do_resample).
+    # -- 7. ONE gather from the concatenated neighbour blocks; the
+    # constant (0, 0, 0, 1) bottom row is re-synthesised
     cat12 = jnp.concatenate(blocks_bank, axis=1)
     take_pos = jnp.where(found, take_pos, fallback)
-    if jax.default_backend() != "cpu":
-        from ..pf.pallas_step import bank_layout_pin, bank_restore_pin
-
-        out12 = jnp.take(bank_layout_pin(cat12), take_pos, axis=1)
-        out = bank_restore_pin(out12)
-    else:
-        out12 = jnp.take(cat12, take_pos, axis=1)
-        out = jnp.concatenate(
-            [
-                out12,
-                jnp.zeros((3, s), bank16.dtype),
-                jnp.ones((1, s), bank16.dtype),
-            ]
-        )
+    out12 = jnp.take(cat12, take_pos, axis=1)
+    out = jnp.concatenate(
+        [
+            out12,
+            jnp.zeros((3, s), bank16.dtype),
+            jnp.ones((1, s), bank16.dtype),
+        ]
+    )
 
     # -- most-copied particle + clip diagnostics, globally: ONE packed
     # all_gather of (max count, argmax, local clip count) replaces two
-    # scalar all_gathers and a psum — three fewer DCN round trips
+    # scalar all_gathers and a psum — three fewer collectives
     local_best = jnp.argmax(counts)
     local_max = counts[local_best]
     packed = jnp.stack(
@@ -369,8 +357,8 @@ def make_distributed_resampler(
     they use the same chunk (and no draw exceeds the reach).
 
     payload_window: reach-1 ring payload in columns — "auto" = S // 4
-    (covers up to 25% per-shard weight imbalance, the dominant DCN
-    saver: 26W+1 floats per shard instead of 13S), an int for explicit
+    (covers up to 25% per-shard weight imbalance: 26W+1 floats per
+    shard instead of 13S), an int for explicit
     control, None for full blocks (exact under any skew the reach
     covers).  Ignored unless reach == 1 and P >= 2.  Window overflow is
     clamped + counted in `clipped`, identically to reach overflow."""

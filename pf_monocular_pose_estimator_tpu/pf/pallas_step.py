@@ -1,34 +1,32 @@
-"""Fused propagate+weight Pallas TPU kernel — one VMEM-resident pass
-over the particle bank per PF iteration.
+"""Fused propagate+weight kernel for one PF iteration, Pallas through
+Triton (`backend="triton"`).
 
 The PF iteration body (reference: pose_estimator.cpp:543-616 propagate,
 :2385-2445 weight) is two bank-scale stages: `pf.soa.propagate_soa`
 (ego-motion/prediction compose, uniform SE(3) noise, rotation apply,
-candidate pinning) and the reprojection weight.  Run as separate XLA
-programs they each stream the (16, N) bank through HBM and the
-propagate alone costs ~0.9 ms at N=100k on v5e — mostly many small
-(1, N) row ops each with fixed launch overhead.
+candidate pinning) and `pf.soa.weight_particles_soa` (projection and
+the M-round greedy marker<->detection matching).  As plain XLA the
+matching builds a (K*M, N) distance volume in device memory and reads
+and rewrites it once per round.
 
-This kernel performs the entire iteration per 8k-lane chunk in VMEM:
-read the resampled bank block once, compose `L @ T @ R`, apply the
-noise rotation/translation, pin the two candidate lanes, then run the
-greedy weight matching (`pallas_weight._weight_from_rows`) on the rows
-it just produced — the propagated bank is written back out for the
-downstream best-iteration carry.
+This kernel gives each program a 1-D block of particles and keeps every
+per-particle quantity in registers: it reads the (16, block) bank slice
+and the six uniform rows once, composes `L @ T @ R`, applies the noise,
+pins the two candidate lanes, projects the markers, runs the greedy
+matching — recomputing the K*M distances in each round from the M
+projected markers rather than holding them, with the used detections
+and available markers as bit masks, so nothing spills and the matching
+is two small loops — and writes the propagated bank and the weights.  Lanes are independent and
+nothing carries between programs.
 
-Bit-exactness with the XLA path: the uniform noise uses the same
-`jax.random` key/counter discipline as `propagate_soa` — on TPU the
-folded kernel recomputes the threefry counter stream IN-KERNEL
-(bit-identical to `jax.random.uniform`; Mosaic performs no FP
-contraction), while interpret/CPU builds pass the raw u01 tensor in
-(LLVM FMA-contracts the affine differently with an inline producer) —
-and the kernel applies jax's exact `max(lo, u*(hi-lo)+lo)`
-minval/maxval affine.  Every FMA chain replicates the expression
-order of `compose_const_left/right`, `_rotation_entries` and the
-rotation-apply loop.  The only tolerated divergences are -0.0→+0.0
-flips from identity-compose terms and (on TPU) possible final-ulp
-differences in the Mosaic vs XLA sin/cos approximations — pinned by
-tests/test_pallas_step.py and an on-hardware equivalence check.
+Semantics are those of `propagate_soa` + `weight_particles_soa`: the
+uniforms are drawn outside the kernel with the same `jax.random`
+key discipline and passed in, the minval/maxval affine is jax's
+`max(lo, u*(hi-lo)+lo)`, and the argmin scans the distances in the XLA
+path's detection-major order (k*M + m, first minimum wins).  Results
+agree to float rounding (FMA contraction, division and sin/cos
+implementations differ between the compilers); tests/test_pallas_step.py
+pins the agreement in interpret mode.
 """
 
 from __future__ import annotations
@@ -38,153 +36,73 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..geometry.camera import Camera
 from .propagate import NoiseBounds
-from .pallas_weight import _BIG, _weight_from_rows
+
+_BIG = 3.0e37  # distance sentinel for masked / retired cells (~finfo.max/4)
+
+# Layout of the packed scalar operand (one f32 vector, loaded per scalar).
+_SCAL, _LR, _PIN, _PROP = 0, 8, 40, 72
+_MARK = 84
 
 
-def _threefry2x32(k0, k1, x0, x1):
-    """jax's threefry-2x32 block function (jax._src.prng.
-    _threefry2x32_lowering, unrolled form) on uint32 vectors — usable
-    inside a Pallas kernel.  Bit-identical to the XLA primitive."""
-
-    def rotl(v, d):
-        return (v << jnp.uint32(d)) | (v >> jnp.uint32(32 - d))
-
-    def rnd(x0, x1, r):
-        x0 = x0 + x1
-        x1 = rotl(x1, r)
-        return x0, x1 ^ x0
-
-    ks2 = k0 ^ k1 ^ jnp.uint32(0x1BD11BDA)
-    x0 = x0 + k0
-    x1 = x1 + k1
-    for r in (13, 15, 26, 6):
-        x0, x1 = rnd(x0, x1, r)
-    x0 = x0 + k1
-    x1 = x1 + ks2 + jnp.uint32(1)
-    for r in (17, 29, 16, 24):
-        x0, x1 = rnd(x0, x1, r)
-    x0 = x0 + ks2
-    x1 = x1 + k0 + jnp.uint32(2)
-    for r in (13, 15, 26, 6):
-        x0, x1 = rnd(x0, x1, r)
-    x0 = x0 + k0
-    x1 = x1 + k1 + jnp.uint32(3)
-    for r in (17, 29, 16, 24):
-        x0, x1 = rnd(x0, x1, r)
-    x0 = x0 + k1
-    x1 = x1 + ks2 + jnp.uint32(4)
-    for r in (13, 15, 26, 6):
-        x0, x1 = rnd(x0, x1, r)
-    x0 = x0 + ks2
-    x1 = x1 + k0 + jnp.uint32(5)
-    return x0, x1
+def _layout(m_cap: int, k_cap: int):
+    det = _MARK + 3 * m_cap
+    down = det + 2 * k_cap
+    det_ok = down + m_cap
+    mark_bits = det_ok + k_cap
+    size = 1 << mark_bits.bit_length()
+    return det, down, det_ok, mark_bits, size
 
 
-def _make_folded_kernel(m_cap: int, k_cap: int, block: int, n_total: int,
-                        draw_inkernel: bool):
-    """Sublane-folded twin of `_make_fused_kernel` (want_pairs=False).
+def _make_kernel(m_cap: int, k_cap: int, block: int, n: int):
+    det_off, down_off, det_ok_off, mark_bits_off, _ = _layout(m_cap, k_cap)
 
-    Mosaic lays a (1, C) vector out with REPLICATED sublanes — one
-    128-lane row per (8, 128) vreg — so every per-particle row op in the
-    straight kernel runs at 1/8 VPU density.  This variant folds each
-    row to (8, C/8) at kernel entry (8 lane-slices concatenated along
-    sublanes) and runs the whole propagate+weight math dense, unfolding
-    only at the output stores.  Per-element expressions and their FMA
-    order are IDENTICAL to the straight kernel, so results are
-    bit-identical (pinned by tests/test_pallas_step.py).
-    """
-    c8 = block // 8
+    def kernel(par_ref, off_ref, bank_ref, u01_ref, out_ref, w_ref):
+        start = pl.program_id(0) * block
+        local = start + jnp.arange(block, dtype=jnp.int32)
+        valid = local < n
+        glane = local + off_ref[0]
 
-    def kernel(scal_ref, mark_ref, dets_ref, downg_ref,
-               lr_ref, pin_ref, prop_ref, off_ref, keys_or_u01_ref, bank_ref,
-               out_ref, w_ref):
-        if draw_inkernel:
-            keys_ref = keys_or_u01_ref
-        else:
-            u01_ref = keys_or_u01_ref
-
-        def fold(ref, row):
-            return jnp.concatenate(
-                [ref[row : row + 1, s * c8 : (s + 1) * c8] for s in range(8)],
-                axis=0,
+        def load_row(ref, i):
+            return plgpu.load(
+                ref.at[i, pl.ds(start, block)], mask=valid, other=0.0
             )
 
-        # --- global particle index of each folded element (also used to
-        # pin candidate lanes after the propagate).  off_ref carries the
-        # shard's lane offset when the kernel runs per-shard inside a
-        # shard_map over the particles mesh axis (0 unsharded), so the
-        # threefry counter stream and the lane-0/1 pins stay GLOBAL ---
-        iota_s = jax.lax.broadcasted_iota(jnp.int32, (8, c8), 0)
-        iota_l = jax.lax.broadcasted_iota(jnp.int32, (8, c8), 1)
-        glane = iota_s * c8 + iota_l + pl.program_id(0) * block + off_ref[0, 0]
+        def p(i):
+            return par_ref[i]
 
-        # --- compose base = L @ (T @ R), same FMA order as the straight
-        # kernel ---
-        t = [fold(bank_ref, i) for i in range(16)]
+        # --- base = L @ (T @ R), compose_const_right then _left order ---
+        t = [load_row(bank_ref, i) for i in range(16)]
         tr = []
         for i in range(4):
             for j in range(4):
-                acc = t[i * 4 + 0] * lr_ref[0, 16 + 0 * 4 + j]
+                acc = t[i * 4] * p(_LR + 16 + j)
                 for k in range(1, 4):
-                    acc = acc + t[i * 4 + k] * lr_ref[0, 16 + k * 4 + j]
+                    acc = acc + t[i * 4 + k] * p(_LR + 16 + k * 4 + j)
                 tr.append(acc)
         base = []
         for i in range(4):
             for j in range(4):
-                acc = lr_ref[0, i * 4 + 0] * tr[0 * 4 + j]
+                acc = p(_LR + i * 4) * tr[j]
                 for k in range(1, 4):
-                    acc = acc + lr_ref[0, i * 4 + k] * tr[k * 4 + j]
+                    acc = acc + p(_LR + i * 4 + k) * tr[k * 4 + j]
                 base.append(acc)
 
-        # --- uniform noise.  draw_inkernel=True (Mosaic/TPU builds):
-        # the (6, N) u01 tensor is a pure counter hash, so each folded
-        # element recomputes its own draw with the threefry block
-        # function — bit-identical to jax.random.uniform(k, (3, n)) via
-        # the partitionable counter stream (element p of the flat (3, n)
-        # array hashes counter words (hi=0, lo=p), bits = o1 ^ o2), and
-        # Mosaic performs no FP contraction so the downstream float math
-        # is unchanged.  Interpret/CPU builds keep the u01-as-input form:
-        # LLVM FMA-contracts the affine differently when the producer is
-        # inline, flipping ~half the draws by 1 ulp vs the XLA path.
-        if draw_inkernel:
-            glane_u = glane.astype(jnp.uint32)
-
-            def u01(row):
-                kidx = 0 if row < 3 else 2  # rows 0-2: k_rot, 3-5: k_trans
-                r = row if row < 3 else row - 3
-                k0 = keys_ref[0, kidx].astype(jnp.uint32)
-                k1 = keys_ref[0, kidx + 1].astype(jnp.uint32)
-                p = jnp.uint32(r * n_total) + glane_u
-                o1, o2 = _threefry2x32(k0, k1, jnp.zeros_like(p), p)
-                bits = o1 ^ o2
-                fb = (bits >> jnp.uint32(9)) | jnp.uint32(0x3F800000)
-                return jax.lax.bitcast_convert_type(fb, jnp.float32) - jnp.float32(1.0)
-
-        else:
-
-            def u01(row):
-                return fold(u01_ref, row)
-
+        # --- uniform noise: jax.random.uniform's minval/maxval affine ---
         def unif(row):
-            lo = prop_ref[0, 2 * row]
-            hi = prop_ref[0, 2 * row + 1]
-            u = u01(row)
-            return jnp.maximum(lo, u * (hi - lo) + lo)
+            lo = p(_PROP + 2 * row)
+            hi = p(_PROP + 2 * row + 1)
+            return jnp.maximum(lo, load_row(u01_ref, row) * (hi - lo) + lo)
 
-        a = unif(0)
-        b = unif(1)
-        cang = unif(2)
-        dt0 = unif(3)
-        dt1 = unif(4)
-        dt2 = unif(5)
-
+        a, b, c = unif(0), unif(1), unif(2)
+        dts = (unif(3), unif(4), unif(5))
+        # Rz(c) @ Ry(b) @ Rx(a), pf.soa._rotation_entries order
         ca, sa = jnp.cos(a), jnp.sin(a)
         cb, sb = jnp.cos(b), jnp.sin(b)
-        cc, sc = jnp.cos(cang), jnp.sin(cang)
+        cc, sc = jnp.cos(c), jnp.sin(c)
         rn = (
             cc * cb,
             cc * sb * sa - sc * ca,
@@ -196,210 +114,102 @@ def _make_folded_kernel(m_cap: int, k_cap: int, block: int, n_total: int,
             cb * sa,
             cb * ca,
         )
-        dts = (dt0, dt1, dt2)
 
-        out = []
+        # --- noise rotation on the right, additive translation; pin the
+        # global lanes 0/1 to the current/predicted pose ---
+        rows = []
         for i in range(4):
             for j in range(4):
                 if j == 3:
-                    if i < 3:
-                        out.append(base[i * 4 + 3] + dts[i])
-                    else:
-                        out.append(base[15])
+                    r = base[i * 4 + 3] + dts[i] if i < 3 else base[15]
                 elif i == 3:
-                    out.append(base[12 + j])
+                    r = base[12 + j]
                 else:
-                    acc = base[i * 4 + 0] * rn[0 * 3 + j]
-                    acc = acc + base[i * 4 + 1] * rn[1 * 3 + j]
-                    acc = acc + base[i * 4 + 2] * rn[2 * 3 + j]
-                    out.append(acc)
+                    r = base[i * 4] * rn[j]
+                    r = r + base[i * 4 + 1] * rn[3 + j]
+                    r = r + base[i * 4 + 2] * rn[6 + j]
+                r = jnp.where(glane == 0, p(_PIN + i * 4 + j), r)
+                r = jnp.where(glane == 1, p(_PIN + 16 + i * 4 + j), r)
+                plgpu.store(out_ref.at[i * 4 + j, pl.ds(start, block)], r, mask=valid)
+                rows.append(r)
 
-        # --- pin candidate lanes 0/1 (global particle index, folded) ---
-        rows = []
-        for i in range(16):
-            r = jnp.where(glane == 0, pin_ref[0, i], out[i])
-            r = jnp.where(glane == 1, pin_ref[0, 16 + i], r)
-            rows.append(r)
-            for s in range(8):
-                out_ref[i : i + 1, s * c8 : (s + 1) * c8] = r[s : s + 1, :]
-
-        # --- weight: same math as pallas_weight._weight_from_rows, on
-        # folded rows with per-detection SMEM scalars ---
-        fx = scal_ref[0, 0]
-        fy = scal_ref[0, 1]
-        cx = scal_ref[0, 2]
-        cy = scal_ref[0, 3]
-        tol_pf = scal_ref[0, 4]
-        tol_init = scal_ref[0, 5]
-        nms = scal_ref[0, 6]
-        r0, r1, r2, r3, r4, r5, r6, r7, r8, r9, r10, r11 = rows[:12]
-
-        km = m_cap * k_cap
-        dist = []
+        # --- weight: projection + greedy matching, pf.soa semantics.  The
+        # K*M distances are recomputed in each round from the M projected
+        # markers instead of being held, and the used-detection /
+        # available-marker sets are bit masks, so a lane's live state is a
+        # few dozen registers and the rounds and detections are loops ---
+        fx, fy, cx, cy = p(_SCAL), p(_SCAL + 1), p(_SCAL + 2), p(_SCAL + 3)
+        tol_pf, tol_init, nms = p(_SCAL + 4), p(_SCAL + 5), p(_SCAL + 6)
+        uv = []
         for m in range(m_cap):
-            mx = mark_ref[0, 3 * m + 0]
-            my = mark_ref[0, 3 * m + 1]
-            mz = mark_ref[0, 3 * m + 2]
-            mbig = mark_ref[0, 3 * m_cap + m]
-            xc = r0 * mx + r1 * my + r2 * mz + r3
-            yc = r4 * mx + r5 * my + r6 * mz + r7
-            zc = r8 * mx + r9 * my + r10 * mz + r11
+            mx, my, mz = (p(_MARK + 3 * m + e) for e in range(3))
+            xc = rows[0] * mx + rows[1] * my + rows[2] * mz + rows[3]
+            yc = rows[4] * mx + rows[5] * my + rows[6] * mz + rows[7]
+            zc = rows[8] * mx + rows[9] * my + rows[10] * mz + rows[11]
             safe_z = jnp.where(jnp.abs(zc) < 1e-12, 1e-12, zc)
-            u = fx * xc / safe_z + cx
-            v = fy * yc / safe_z + cy
-            for k in range(k_cap):
-                du = dets_ref[0, 2 * k] - u
-                dv = dets_ref[0, 2 * k + 1] - v
-                dist.append(du * du + dv * dv + dets_ref[0, 2 * k_cap + k] + mbig)
+            uv.append((fx * xc / safe_z + cx, fy * yc / safe_z + cy))
+        zeros_i = jnp.zeros((block,), jnp.int32)
+        marker_bits = zeros_i + p(mark_bits_off).astype(jnp.int32)
 
-        weights = jnp.zeros((8, c8), jnp.float32)
-        nself = jnp.ones((8, c8), jnp.float32)
-        done = jnp.zeros((8, c8), jnp.bool_)
-        used = [jnp.zeros((8, c8), jnp.float32) for _ in range(k_cap)]
+        def scan_cells(k, carry):
+            # argmin over the cells in weight_particles_soa's detection-
+            # major order (k*M + m); strict < keeps the first minimum
+            minv, k_sel, m_sel, avail = carry
+            det_x = par_ref[det_off + 2 * k]
+            det_y = par_ref[det_off + 2 * k + 1]
+            det_ok = par_ref[det_ok_off + k] > 0.5
+            for m in range(m_cap):
+                du = det_x - uv[m][0]
+                dv = det_y - uv[m][1]
+                live = det_ok & (((avail >> m) & 1) != 0)
+                v = jnp.where(live, du * du + dv * dv, _BIG)
+                better = v < minv
+                minv = jnp.where(better, v, minv)
+                k_sel = jnp.where(better, k, k_sel)
+                m_sel = jnp.where(better, m, m_sel)
+            return minv, k_sel, m_sel, avail
 
-        for _ in range(m_cap):
-            minv = dist[0]
-            for d2 in dist[1:]:
-                minv = jnp.minimum(minv, d2)
-            idx = jnp.full((8, c8), km, jnp.int32)
-            for ridx in range(km - 1, -1, -1):
-                idx = jnp.where(dist[ridx] == minv, ridx, idx)  # first min wins
-            m_sel = idx // k_cap
-            k_sel = idx - m_sel * k_cap
+        def match_round(_, carry):
+            weights, n_self_occ, done, used, avail = carry
+            minv, k_sel, m_sel, _ = jax.lax.fori_loop(
+                0, k_cap, scan_cells,
+                (jnp.full((block,), jnp.inf, jnp.float32), zeros_i, zeros_i, avail),
+            )
             d = jnp.sqrt(jnp.maximum(minv, 0.0))
-            ok = (d <= tol_pf) & (~done)
-            done = done | (~ok)
+            ok = (d <= tol_pf) & ~done
+            done = done | ~ok
 
             score = nms + ((tol_init - d) / tol_init) ** 2
-            reused = jnp.zeros((8, c8), jnp.float32)
-            for k in range(k_cap):
-                reused = jnp.maximum(reused, jnp.where(k_sel == k, used[k], 0.0))
-            occ_hit = ok & (reused > 0.0)
-            penal_occ = jnp.where(occ_hit, 3.0 * nself, 0.0)
-            nself = nself + jnp.where(occ_hit, 1.0, 0.0)
-
-            dpen = jnp.zeros((8, c8), jnp.float32)
+            occ = ok & (((used >> k_sel) & 1) != 0)
+            penal_occ = jnp.where(occ, 3.0 * n_self_occ, 0.0)
+            n_self_occ = n_self_occ + occ.astype(jnp.float32)
+            dpen = jnp.zeros((block,), jnp.float32)
             for m in range(m_cap):
-                dpen = dpen + jnp.where(m_sel == m, downg_ref[0, m], 0.0)
+                dpen = jnp.where(m_sel == m, p(down_off + m), dpen)
             penal_down = jnp.where(ok, dpen, 0.0)
-
             weights = weights + jnp.where(ok, score, 0.0) - penal_occ - penal_down
-            for k in range(k_cap):
-                used[k] = used[k] + jnp.where((k_sel == k) & ok, 1.0, 0.0)
-            for ridx in range(km):
-                m_i = ridx // k_cap
-                dist[ridx] = jnp.where((m_sel == m_i) & ok, _BIG, dist[ridx])
+            used = used | jnp.where(ok, 1 << k_sel, 0)
+            avail = avail & ~jnp.where(ok, 1 << m_sel, 0)  # retire the marker
+            return weights, n_self_occ, done, used, avail
 
-        for s in range(8):
-            w_ref[0:1, s * c8 : (s + 1) * c8] = weights[s : s + 1, :]
-
-    return kernel
-
-
-def _make_fused_kernel(m_cap: int, k_cap: int, block: int,
-                       want_pairs: bool = True):
-    def kernel(scal_ref, mark_ref, det_ref, detmask_ref, downg_ref,
-               lr_ref, pin_ref, prop_ref, off_ref, bank_ref, u01_ref,
-               out_ref, w_ref, *rest):
-        if want_pairs:
-            pairs_ref, ncorr_ref, dist2_ref, used_ref = rest
-        else:
-            pairs_ref, ncorr_ref = None, None
-            dist2_ref, used_ref = rest
-        c = bank_ref.shape[1]
-
-        # --- compose base = L @ (T @ R) (compose_const_right then
-        # compose_const_left FMA order; L/R are identity when not
-        # tracking / not applying the prediction) ---
-        t = [bank_ref[i : i + 1, :] for i in range(16)]
-        tr = []
-        for i in range(4):
-            for j in range(4):
-                acc = t[i * 4 + 0] * lr_ref[0, 16 + 0 * 4 + j]
-                for k in range(1, 4):
-                    acc = acc + t[i * 4 + k] * lr_ref[0, 16 + k * 4 + j]
-                tr.append(acc)
-        base = []
-        for i in range(4):
-            for j in range(4):
-                acc = lr_ref[0, i * 4 + 0] * tr[0 * 4 + j]
-                for k in range(1, 4):
-                    acc = acc + lr_ref[0, i * 4 + k] * tr[k * 4 + j]
-                base.append(acc)
-
-        # --- uniform noise (jax.random.uniform minval/maxval affine on
-        # the pre-drawn u01 rows: bit-exact same values) ---
-        def unif(row):
-            lo = prop_ref[0, 2 * row]
-            hi = prop_ref[0, 2 * row + 1]
-            u = u01_ref[row : row + 1, :]
-            return jnp.maximum(lo, u * (hi - lo) + lo)
-
-        a = unif(0)
-        b = unif(1)
-        cang = unif(2)
-        dt0 = unif(3)
-        dt1 = unif(4)
-        dt2 = unif(5)
-
-        # _rotation_entries expression order (Rz(c) @ Ry(b) @ Rx(a))
-        ca, sa = jnp.cos(a), jnp.sin(a)
-        cb, sb = jnp.cos(b), jnp.sin(b)
-        cc, sc = jnp.cos(cang), jnp.sin(cang)
-        rn = (
-            cc * cb,
-            cc * sb * sa - sc * ca,
-            cc * sb * ca + sc * sa,
-            sc * cb,
-            sc * sb * sa + cc * ca,
-            sc * sb * ca - cc * sa,
-            -sb,
-            cb * sa,
-            cb * ca,
+        weights, *_ = jax.lax.fori_loop(
+            0, m_cap, match_round,
+            (
+                jnp.zeros((block,), jnp.float32),
+                jnp.ones((block,), jnp.float32),
+                jnp.zeros((block,), jnp.bool_),
+                zeros_i,
+                marker_bits,
+            ),
         )
-        dts = (dt0, dt1, dt2)
 
-        # --- apply noise rotation on the right, additive translation ---
-        out = []
-        for i in range(4):
-            for j in range(4):
-                if j == 3:
-                    if i < 3:
-                        out.append(base[i * 4 + 3] + dts[i])
-                    else:
-                        out.append(base[15])
-                elif i == 3:
-                    out.append(base[12 + j])
-                else:
-                    acc = base[i * 4 + 0] * rn[0 * 3 + j]
-                    acc = acc + base[i * 4 + 1] * rn[1 * 3 + j]
-                    acc = acc + base[i * 4 + 2] * rn[2 * 3 + j]
-                    out.append(acc)
-
-        # --- pin candidate lanes 0/1 (global) to current/predicted;
-        # off_ref is the shard lane offset under shard_map (0 unsharded) ---
-        glane = (
-            jax.lax.broadcasted_iota(jnp.int32, (1, c), 1)
-            + pl.program_id(0) * block
-            + off_ref[0, 0]
-        )
-        rows = []
-        for i in range(16):
-            r = jnp.where(glane == 0, pin_ref[0, i], out[i])
-            r = jnp.where(glane == 1, pin_ref[0, 16 + i], r)
-            rows.append(r)
-            out_ref[i : i + 1, :] = r
-
-        _weight_from_rows(m_cap, k_cap, scal_ref, mark_ref, det_ref,
-                          detmask_ref, downg_ref, rows[:12], w_ref,
-                          pairs_ref, ncorr_ref, dist2_ref, used_ref)
+        plgpu.store(w_ref.at[pl.ds(start, block)], weights, mask=valid)
 
     return kernel
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("block", "interpret", "want_pairs", "folded", "n_total"),
+    jax.jit, static_argnames=("block", "num_warps", "interpret", "n_total")
 )
 def fused_propagate_weight_pallas(
     key: jax.Array,
@@ -423,34 +233,32 @@ def fused_propagate_weight_pallas(
     tol_init,
     downgrade: jnp.ndarray,
     num_markers_score=None,
-    block: int = 8192,
+    block: int = 128,
+    num_warps: int = 4,
     interpret: bool = False,
-    want_pairs: bool = True,
-    folded: bool = False,
     lane_offset=None,
     n_total: int | None = None,
 ):
-    """Fused twin of `propagate_soa` + `weight_particles_soa`: returns
-    (bank16, weights (N,), pairs_soa (M, 2, N), n_corr (N,)).
+    """Fused `propagate_soa` + `weight_particles_soa`: returns
+    (bank16 (16, N), weights (N,)).
 
-    With want_pairs=False returns (bank16, weights) only — the tracker's
-    PF loop uses this: per-particle pairs are consumed for at most two
-    lanes downstream, which are recomputed per-pose instead of carrying
-    (M, 2, N) through the loop.
+    block: particles per program (a power of two); num_warps: Triton
+    warps per program.  interpret=True runs the kernel in the Pallas
+    interpreter (CPU tests).
 
-    folded=True (want_pairs=False only) runs the sublane-folded kernel
-    (`_make_folded_kernel`): bit-identical results, per-particle row
-    math at full (8, 128) vreg density instead of 1/8.
-
-    lane_offset / n_total: for running the kernel PER SHARD inside a
+    lane_offset / n_total: for running the kernel per shard inside a
     shard_map over the particles mesh axis (parallel/pf_kernels.py).
     `resampled16` is then the shard's (16, N/P) block, `lane_offset` the
-    traced global index of its first lane, and `n_total` the global bank
-    width.  The threefry counter stream and the lane-0/1 candidate pins
-    are evaluated at GLOBAL lane indices, so the sharded program draws
-    and pins bit-identically to the unsharded one."""
+    traced global index of its first lane and `n_total` the global bank
+    width.  The uniform draws and the lane-0/1 candidate pins are taken
+    at global lane indices, so the sharded program draws and pins
+    exactly as the unsharded one."""
+    assert block > 0 and block & (block - 1) == 0, "block must be a power of two"
     m_cap = markers_h.shape[0]
     k_cap = det_xy.shape[0]
+    # the marker and detection sets are int32 bit masks; the marker mask
+    # rides in the f32 scalar operand, exact up to 24 bits
+    assert m_cap <= 24 and k_cap <= 31, "too many markers or detections"
     n = resampled16.shape[1]
     f32 = jnp.float32
     if n_total is None:
@@ -458,8 +266,6 @@ def fused_propagate_weight_pallas(
     off = jnp.zeros((), jnp.int32) if lane_offset is None else jnp.asarray(
         lane_offset, jnp.int32
     )
-    off_arr = off.reshape(1, 1)
-
     if num_markers_score is None:
         num_markers_score = jnp.sum(marker_mask.astype(f32))
 
@@ -468,8 +274,8 @@ def fused_propagate_weight_pallas(
 
     def _u01_rows(k):
         """(3, n) u01 block at global flat positions [r*n_total + off + i]
-        — bit-identical to jax.random.uniform(k, (3, n_total))[:, off:off+n]
-        via the partitionable threefry counter stream (pf.soa._uniform_at)."""
+        — equal to jax.random.uniform(k, (3, n_total))[:, off:off+n] via
+        the partitionable threefry counter stream (pf.soa._uniform_at)."""
         if lane_offset is None and n_total == n:
             return jax.random.uniform(k, (3, n), f32)
         from .soa import _uniform_at
@@ -477,262 +283,56 @@ def fused_propagate_weight_pallas(
         idx = off + jnp.arange(n, dtype=jnp.int32)
         return jnp.stack([_uniform_at(k, r * n_total + idx, n_total) for r in range(3)])
 
+    u01 = jnp.concatenate([_u01_rows(k_rot), _u01_rows(k_trans)], axis=0)
+
     eye = jnp.eye(4, dtype=f32)
     tracking = jnp.asarray(tracking)
     left = jnp.where(tracking, cam_move_inv.astype(f32), eye)
     right = jnp.where(
-        tracking & jnp.asarray(apply_prediction),
-        prediction_matrix.astype(f32),
-        eye,
+        tracking & jnp.asarray(apply_prediction), prediction_matrix.astype(f32), eye
     )
-    lr = jnp.concatenate([left.reshape(16), right.reshape(16)]).reshape(1, 32)
-    pin = jnp.concatenate(
-        [current_pose.reshape(16), predicted_pose.reshape(16)]
-    ).astype(f32).reshape(1, 32)
-
     infl = jnp.asarray(inflation, f32)
     three = jnp.ones((3,), f32)
     # per-axis [lo, hi] pairs, rows 0-2 angular, 3-5 translation — the
     # exact products propagate_soa computes (fac_* may be (3,) or scalar)
-    lo_a = jnp.asarray(noise.min_angular, f32) * three * fac_rot * infl
-    hi_a = jnp.asarray(noise.max_angular, f32) * three * fac_rot * infl
-    lo_t = jnp.asarray(noise.min_translation, f32) * three * fac_trans * infl
-    hi_t = jnp.asarray(noise.max_translation, f32) * three * fac_trans * infl
-    prop = jnp.stack(
-        [jnp.concatenate([lo_a, lo_t]), jnp.concatenate([hi_a, hi_t])],
-        axis=1,
-    ).reshape(1, 12)  # [lo0, hi0, lo1, hi1, ...]
+    lo = jnp.concatenate([
+        jnp.asarray(noise.min_angular, f32) * three * fac_rot * infl,
+        jnp.asarray(noise.min_translation, f32) * three * fac_trans * infl,
+    ])
+    hi = jnp.concatenate([
+        jnp.asarray(noise.max_angular, f32) * three * fac_rot * infl,
+        jnp.asarray(noise.max_translation, f32) * three * fac_trans * infl,
+    ])
+    scal = jnp.stack([
+        jnp.asarray(v, f32)
+        for v in (camera.fx, camera.fy, camera.cx, camera.cy, tol_pf, tol_init,
+                  num_markers_score, 0.0)
+    ])
+    *_, size = _layout(m_cap, k_cap)
+    par = jnp.concatenate([
+        scal,
+        left.reshape(16), right.reshape(16),
+        current_pose.astype(f32).reshape(16), predicted_pose.astype(f32).reshape(16),
+        jnp.stack([lo, hi], axis=1).reshape(12),
+        markers_h[:, :3].astype(f32).reshape(-1),
+        det_xy.astype(f32).reshape(-1),
+        jnp.where(downgrade, 2.0, 0.0).astype(f32),
+        det_mask.astype(f32),
+        # the valid markers as one bit mask (exact in f32 for M <= 24)
+        jnp.sum(jnp.where(marker_mask, 2 ** jnp.arange(m_cap), 0)).astype(f32)[None],
+    ])
+    par = jnp.pad(par, (0, size - par.shape[0]))
 
-    scal = jnp.stack(
-        [
-            jnp.asarray(camera.fx, f32),
-            jnp.asarray(camera.fy, f32),
-            jnp.asarray(camera.cx, f32),
-            jnp.asarray(camera.cy, f32),
-            jnp.asarray(tol_pf, f32),
-            jnp.asarray(tol_init, f32),
-            jnp.asarray(num_markers_score, f32),
-            jnp.asarray(0.0, f32),
-        ]
-    ).reshape(1, 8)
-    mark = jnp.concatenate(
-        [
-            markers_h[:, :3].reshape(-1).astype(f32),
-            jnp.where(marker_mask, 0.0, _BIG).astype(f32),
-        ]
-    ).reshape(1, 4 * m_cap)
-    det = det_xy.astype(f32)
-    detmask = jnp.where(det_mask, 0.0, _BIG).astype(f32).reshape(k_cap, 1)
-    downg = jnp.where(downgrade, 2.0, 0.0).astype(f32).reshape(1, m_cap)
-
-    # never use a block wider than the (lane-aligned) bank
-    block = min(block, ((n + 127) // 128) * 128)
-
-    # folded needs c8 = block/8 lane-aligned (block % 1024 == 0): shrink
-    # the block rather than silently running the straight kernel — the
-    # flag exists to measure the folded variant.  Partial edge blocks are
-    # fine (Pallas pads reads and clips stores, and garbage pad lanes
-    # never reach the outputs); only sub-1024 banks fall back.
-    if folded and not want_pairs:
-        block = max(1024, (block // 1024) * 1024) if block >= 1024 else block
-    if folded and not want_pairs and block % 1024 == 0:
-        smem = pltpu.SMEM
-        space = pl.ANY if interpret else pltpu.VMEM
-        dets_smem = jnp.concatenate(
-            [det.reshape(-1), detmask.reshape(-1)]
-        ).reshape(1, 3 * k_cap)
-
-        draw_inkernel = not interpret
-        if draw_inkernel:
-            # raw threefry key words for the in-kernel counter-stream draws
-            def _raw(k):
-                if jnp.issubdtype(k.dtype, jax.dtypes.prng_key):
-                    return jax.random.key_data(k)
-                return k
-
-            rand_arg = jax.lax.bitcast_convert_type(
-                jnp.concatenate([_raw(k_rot), _raw(k_trans)]).astype(jnp.uint32),
-                jnp.int32,
-            ).reshape(1, 4)
-            rand_spec = pl.BlockSpec((1, 4), lambda i: (0, 0), memory_space=smem)
-        else:
-            rand_arg = jnp.concatenate(
-                [_u01_rows(k_rot), _u01_rows(k_trans)], axis=0
-            )  # (6, N)
-            rand_spec = pl.BlockSpec((6, block), lambda i: (0, i), memory_space=space)
-        kernel = _make_folded_kernel(m_cap, k_cap, block, n_total, draw_inkernel)
-        bank_out, w = pl.pallas_call(
-            kernel,
-            grid=(pl.cdiv(n, block),),
-            out_shape=[
-                jax.ShapeDtypeStruct((16, n), f32),
-                jax.ShapeDtypeStruct((1, n), f32),
-            ],
-            in_specs=[
-                pl.BlockSpec((1, 8), lambda i: (0, 0), memory_space=smem),
-                pl.BlockSpec((1, 4 * m_cap), lambda i: (0, 0), memory_space=smem),
-                pl.BlockSpec((1, 3 * k_cap), lambda i: (0, 0), memory_space=smem),
-                pl.BlockSpec((1, m_cap), lambda i: (0, 0), memory_space=smem),
-                pl.BlockSpec((1, 32), lambda i: (0, 0), memory_space=smem),
-                pl.BlockSpec((1, 32), lambda i: (0, 0), memory_space=smem),
-                pl.BlockSpec((1, 12), lambda i: (0, 0), memory_space=smem),
-                pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=smem),
-                rand_spec,
-                pl.BlockSpec((16, block), lambda i: (0, i), memory_space=space),
-            ],
-            out_specs=[
-                pl.BlockSpec((16, block), lambda i: (0, i), memory_space=space),
-                pl.BlockSpec((1, block), lambda i: (0, i), memory_space=space),
-            ],
-            interpret=interpret,
-        )(scal, mark, dets_smem, downg, lr, pin, prop, off_arr, rand_arg,
-          resampled16.astype(f32))
-        return bank_out, w[0]
-
-    u01 = jnp.concatenate([_u01_rows(k_rot), _u01_rows(k_trans)], axis=0)  # (6, N)
-
-    kernel = _make_fused_kernel(m_cap, k_cap, block, want_pairs)
-    grid = (pl.cdiv(n, block),)
-    space = pl.ANY if interpret else pltpu.VMEM
-    smem = pltpu.SMEM
-    out_shape = [
-        jax.ShapeDtypeStruct((16, n), f32),
-        jax.ShapeDtypeStruct((1, n), f32),
-    ]
-    pair_specs = []
-    if want_pairs:
-        out_shape += [
-            jax.ShapeDtypeStruct((2 * m_cap, n), jnp.int32),
-            jax.ShapeDtypeStruct((1, n), jnp.int32),
-        ]
-        pair_specs = [
-            pl.BlockSpec((2 * m_cap, block), lambda i: (0, i), memory_space=space),
-            pl.BlockSpec((1, block), lambda i: (0, i), memory_space=space),
-        ]
-    outs = pl.pallas_call(
-        kernel,
-        grid=grid,
-        out_shape=out_shape,
-        in_specs=[
-            pl.BlockSpec((1, 8), lambda i: (0, 0), memory_space=smem),
-            pl.BlockSpec((1, 4 * m_cap), lambda i: (0, 0), memory_space=smem),
-            pl.BlockSpec((k_cap, 2), lambda i: (0, 0), memory_space=space),
-            pl.BlockSpec((k_cap, 1), lambda i: (0, 0), memory_space=space),
-            pl.BlockSpec((1, m_cap), lambda i: (0, 0), memory_space=smem),
-            pl.BlockSpec((1, 32), lambda i: (0, 0), memory_space=smem),
-            pl.BlockSpec((1, 32), lambda i: (0, 0), memory_space=smem),
-            pl.BlockSpec((1, 12), lambda i: (0, 0), memory_space=smem),
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=smem),
-            pl.BlockSpec((16, block), lambda i: (0, i), memory_space=space),
-            pl.BlockSpec((6, block), lambda i: (0, i), memory_space=space),
+    bank_out, w = pl.pallas_call(
+        _make_kernel(m_cap, k_cap, block, n),
+        grid=(pl.cdiv(n, block),),
+        out_shape=[
+            jax.ShapeDtypeStruct((16, n), f32),
+            jax.ShapeDtypeStruct((n,), f32),
         ],
-        out_specs=[
-            pl.BlockSpec((16, block), lambda i: (0, i), memory_space=space),
-            pl.BlockSpec((1, block), lambda i: (0, i), memory_space=space),
-        ]
-        + pair_specs,
-        scratch_shapes=[
-            pltpu.VMEM((m_cap * k_cap, block), f32),
-            pltpu.VMEM((k_cap, block), f32),
-        ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps, num_stages=1),
         interpret=interpret,
-    )(scal, mark, det, detmask, downg, lr, pin, prop, off_arr,
-      resampled16.astype(f32), u01)
-
-    if not want_pairs:
-        bank_out, w = outs
-        return bank_out, w[0]
-    bank_out, w, pairs2, ncorr = outs
-    pairs_soa = pairs2.reshape(m_cap, 2, n)
-    return bank_out, w[0], pairs_soa, ncorr[0]
-
-
-def _pin_kernel(x_ref, o_ref):
-    o_ref[...] = x_ref[...]
-
-
-def _top_kernel(x_ref, o_ref):
-    o_ref[...] = x_ref[0:12, :]
-
-
-def _restore_kernel(x_ref, o_ref):
-    o_ref[0:12, :] = x_ref[...]
-    z = jnp.zeros_like(x_ref[0:1, :])
-    o_ref[12:13, :] = z
-    o_ref[13:14, :] = z
-    o_ref[14:15, :] = z
-    o_ref[15:16, :] = z + 1.0
-
-
-@functools.partial(jax.jit, static_argnames=("block", "interpret"))
-def bank_top_pin(bank16: jnp.ndarray, block: int = 8192,
-                 interpret: bool = False) -> jnp.ndarray:
-    """Layout-pinning copy of the TOP 12 rows of a (16, N) bank.
-
-    The flat16 rows 12-15 of every pose in the bank are the rigid-
-    transform bottom row (0, 0, 0, 1) — exactly, by construction: all
-    poses enter the bank from exp/compose/P3P paths that write the
-    constant row, and the propagate compose preserves it in f32
-    (row 3 of A @ B is B's row 3 when A's is (0,0,0,1)).  The
-    resampling gather therefore only needs the 12 varying rows: 25%
-    less HBM traffic through the pin -> gather -> restore chain.
-    Serves the same layout-confinement role as `bank_layout_pin`.
-    """
-    _, n = bank16.shape
-    block = min(block, ((n + 127) // 128) * 128)
-    # Mosaic requires sublane block dims divisible by 8 or equal to the
-    # array dim: read full (16, block) blocks, store only the 12 varying
-    # rows (the out array IS 12 rows, so its block passes the check).
-    return pl.pallas_call(
-        _top_kernel,
-        grid=(pl.cdiv(n, block),),
-        in_specs=[pl.BlockSpec((16, block), lambda i: (0, i))],
-        out_specs=pl.BlockSpec((12, block), lambda i: (0, i)),
-        out_shape=jax.ShapeDtypeStruct((12, n), bank16.dtype),
-        interpret=interpret,
-    )(bank16)
-
-
-@functools.partial(jax.jit, static_argnames=("block", "interpret"))
-def bank_restore_pin(top12: jnp.ndarray, block: int = 8192,
-                     interpret: bool = False) -> jnp.ndarray:
-    """Inverse of `bank_top_pin`: (12, N) -> (16, N) with the constant
-    (0, 0, 0, 1) bottom-row entries re-synthesised in-kernel (rows
-    12-14 zeros, row 15 ones).  Also pins the default layout on the
-    gather result, replacing the second `bank_layout_pin`."""
-    _, n = top12.shape
-    block = min(block, ((n + 127) // 128) * 128)
-    return pl.pallas_call(
-        _restore_kernel,
-        grid=(pl.cdiv(n, block),),
-        in_specs=[pl.BlockSpec((12, block), lambda i: (0, i))],
-        out_specs=pl.BlockSpec((16, block), lambda i: (0, i)),
-        out_shape=jax.ShapeDtypeStruct((16, n), top12.dtype),
-        interpret=interpret,
-    )(top12)
-
-
-@functools.partial(jax.jit, static_argnames=("block",))
-def bank_layout_pin(bank16: jnp.ndarray, block: int = 8192) -> jnp.ndarray:
-    """Identity copy through a Pallas call to pin the default {1,0}
-    (lanes-minor) layout on a (R, N) bank.
-
-    XLA's layout assignment prefers the transposed {0,1} layout for the
-    operand/result of a lane-axis gather (the resampling ``jnp.take``),
-    and propagates it through every select/cond/while the bank crosses.
-    Physically {0,1} tiles (16, N) as (N, 16) rows padded to 128 lanes —
-    an 8x memory inflation paid by every copy of the bank (measured
-    ~160 us per bank copy at N=100k on v5e).  Mosaic custom-calls only
-    accept default layouts, so routing the gather result through this
-    no-op confines {0,1} to the gather itself; the conversion happens
-    once, in this kernel's operand fetch.
-    """
-    r, n = bank16.shape
-    block = min(block, ((n + 127) // 128) * 128)
-    return pl.pallas_call(
-        _pin_kernel,
-        grid=(pl.cdiv(n, block),),
-        in_specs=[pl.BlockSpec((r, block), lambda i: (0, i))],
-        out_specs=pl.BlockSpec((r, block), lambda i: (0, i)),
-        out_shape=jax.ShapeDtypeStruct((r, n), bank16.dtype),
-    )(bank16)
+        name="pf_propagate_weight",
+    )(par, off.reshape(1), resampled16.astype(f32), u01)
+    return bank_out, w

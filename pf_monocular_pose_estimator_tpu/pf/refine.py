@@ -5,7 +5,7 @@ Functional parity target: PoseEstimator::optimisePose
 Jacobian (computeJacobian, :2163-2192), left-multiplicative update
 T <- exp(dT) @ T, LDLT normal equations, and covariance (J^T R^-1 J)^-1.
 
-TPU redesign:
+Fixed-shape redesign:
   * fixed iteration budget with a convergence mask instead of `break`
     (data-dependent early exit doesn't exist under jit); converged poses
     simply stop moving, so the result is identical;
@@ -74,10 +74,10 @@ def _solve6_scaled(a_s: jnp.ndarray, b_s: jnp.ndarray) -> jnp.ndarray:
 def solve6_spd(a: jnp.ndarray, b: jnp.ndarray, refine: bool = True) -> jnp.ndarray:
     """Solve the 6x6 SPD normal equations without an LU custom-call.
 
-    ``jnp.linalg.solve`` on TPU lowers to LuDecompositionBlock +
-    triangular-solve custom-calls (~3 dispatches per solve); unrolled
-    over the GN budget that is ~75 un-fusable dispatches per frame.
-    This closed-form path (Jacobi scaling, 3x3-blocked Schur complement
+    ``jnp.linalg.solve`` lowers to LU-factorisation and triangular-solve
+    library calls (several dispatches per solve, which XLA cannot fuse);
+    unrolled over the GN budget that multiplies per frame.  This
+    closed-form path (Jacobi scaling, 3x3-blocked Schur complement
     with adjugate inverses, optional iterative-refinement step) is pure
     elementwise/dot ops that XLA fuses into the surrounding iteration.
 
@@ -205,8 +205,7 @@ def gauss_newton_refine(
         # no iterative-refinement pass: dt is a step *direction*; GN's
         # convergence tol is 1e-4 and the divergence guard reverts bad
         # steps, so the plain closed-form solve's accuracy suffices —
-        # and the hot path unrolls this body ~25x, so instruction count
-        # is wall-clock (each tiny op costs ~0.5 us of TPU issue gap)
+        # and the hot path runs this body 25 times per hypothesis
         dt = solve6_spd(a_reg, b_vec, refine=False)
         dt = jnp.where(jnp.isfinite(dt), dt, 0.0)
         new_pose = exp_se3(dt) @ pose
@@ -223,20 +222,16 @@ def gauss_newton_refine(
     _, _, err0, _ = _residuals_and_normal_eqs(camera, pose0, markers_h, det_xy, corr, corr_mask)
     init = (pose0, jnp.asarray(False), jnp.zeros((), jnp.int32), err0)
     if max_iterations <= 32:
-        # small budgets: fully unroll with convergence masking — a TPU
-        # while_loop costs ~35 us of sync per trip (and, measured on
-        # v5e, perturbs XLA's layout/scheduling choices for the whole
-        # step by ~1 ms/frame); unrolled iterations fuse and pipeline.
-        # scan(unroll=True) emits the SAME fully-unrolled computation
-        # as a Python loop but traces the body ONCE — the Python unroll
-        # was ~10 s of the ~17 s flagship trace time (the warm-start
-        # floor), retracing 25 iterations x 2 call sites (round 5).
+        # small budgets: a fixed-trip-count scan with convergence masking
+        # instead of an early-exit while_loop, whose data-dependent
+        # predicate would cost a device-to-host check per trip.  The scan
+        # stays rolled: fully unrolling its 25 trips at each call site
+        # multiplied the step's GPU compile time.
         carry, _ = jax.lax.scan(
             lambda c, _: (body(c), None),
             init,
             None,
             length=max_iterations,
-            unroll=True,
         )
         pose, done, n_iter, _ = carry
     else:

@@ -1,11 +1,11 @@
-"""Structure-of-arrays (SoA) particle kernels — the TPU-fast hot path.
+"""Structure-of-arrays (SoA) particle programs — the plain XLA hot path.
 
-Why: a bank stored as (N, 4, 4) maps its *minor* 4x4 dims onto the TPU's
-(8 sublanes x 128 lanes) vector tiles, wasting >98% of each tile.  Storing
-the bank as (16, N) — sixteen row-major pose entries, particles in the
-lane dimension — makes every elementwise op, 4x4 compose, projection and
-distance sweep a fully-packed VPU op over N lanes.  Measured on TPU v5e
-this turns the 100k-particle propagate+weight from ~19 ms into ~2 ms.
+Why: the bank is stored as (16, N) — sixteen row-major pose entries,
+particles along the minor axis — so every elementwise op, 4x4 compose,
+projection and distance sweep is a contiguous, fully-vectorised op over
+N particles, with no strided (N, 4, 4) minor dimensions.  These functions
+are the reference implementation the fused kernel (pf/pallas_step.py) is
+checked against.
 
 Semantics are identical to the AoS kernels in propagate.py / weight.py
 (which mirror pose_estimator.cpp:543-616 and :2385-2445); equivalence is
@@ -253,12 +253,8 @@ def pick_lane(arr: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     GSPMD all-gather the whole operand; the one-hot contraction lowers
     to a shard-local partial dot + scalar psum instead (same result,
     collective cost O(output) not O(N)).  A dot rather than a masked
-    `where`+`reduce_sum`: the reduce form makes XLA's layout assignment
-    prefer the transposed {0,1} layout for the (16, N) bank operand,
-    which then propagates into every while/cond carry the bank crosses
-    (~160 us per 8x-inflated bank copy at N=100k — the same leak class
-    pf.pallas_step.bank_layout_pin confines on the resample path); the
-    dot keeps the default layout.  Bit-exact: the one-hot row has a
+    `where`+`reduce_sum` keeps XLA's default layout for the (16, N)
+    bank operand.  Bit-exact: the one-hot row has a
     single nonzero, so the contraction reproduces arr[..., idx] with no
     rounding.  Used for every "pick one particle" (best/most-resampled)
     access on bank-shaped arrays.
@@ -276,11 +272,10 @@ def _uniform_at(key: jax.Array, idx: jnp.ndarray, n: int) -> jnp.ndarray:
     gather: recompute the threefry-2x32 counter stream at the probe
     indices directly.
 
-    Why: a 1-D dynamic gather on the lane axis serialises on TPU
-    (measured ~0.6 ms for 6 x 100k probes in round 2 — more than the
-    two resample sorts it was meant to replace).  The threefry block
-    function is pure counter hashing, so `u[k]` is an elementwise
-    function of `k`: ~100 int32 VPU ops per probe, no data movement.
+    Why: the threefry block function is pure counter hashing, so `u[k]`
+    is an elementwise function of `k`: ~100 int32 ops per probe, no
+    data movement and no gather — and a shard (or a kernel block) can
+    evaluate exactly its slice of a global draw stream.
 
     Replicates jax's exact pipeline (the `threefry_partitionable`
     default: jax._src.prng._threefry_random_bits_partitionable +
@@ -313,8 +308,7 @@ def hillis_steele(x: jnp.ndarray) -> jnp.ndarray:
     tree (x[i] += x[i-k], k doubling): the result depends only on the
     last-axis length, never on how XLA decomposes a scan — the
     width-independence anchor of the chunked resampling CDF (shared by
-    this module, pf.pallas_resample.probe_rank and
-    parallel.resample._resample_shard).  Monotone non-decreasing for
+    this module and parallel.resample._resample_shard).  Monotone non-decreasing for
     non-negative inputs (each step adds monotone non-negative terms)."""
     c = x.shape[-1]
     k = 1
@@ -327,9 +321,8 @@ def hillis_steele(x: jnp.ndarray) -> jnp.ndarray:
 
 def default_cdf_chunk(n: int) -> int:
     """Canonical CDF summation chunk — a function of N alone, NEVER of
-    the mesh width, so the single-device sort path, the Pallas decode
-    path and the distributed shard_map path all build bit-identical
-    fixed-association CDFs.  Rule: largest divisor of N//8 (of N itself
+    the mesh width, so the single-device sort path and the distributed
+    shard_map path build bit-identical fixed-association CDFs.  Rule: largest divisor of N//8 (of N itself
     when 8 does not divide N) that is <= 512 — such a chunk divides the
     shard size N/P for every power-of-two width P <= 8 (and for
     power-of-two N, every width up to N/512), which is what cross-width
@@ -406,23 +399,16 @@ def stratified_resample_closed(key: jax.Array, weights: jnp.ndarray):
     with a full grid unit of margin (the comparisons are the SAME f32
     `u <= cdf` predicates the merge-sort path resolves, hence
     bit-identical assignments).  The probes u(k) are recomputed from
-    the PRNG counter stream (`_uniform_at`), NOT gathered — the round-2
-    gather form lost ~0.6 ms/frame to serialised lane gathers.
+    the PRNG counter stream (`_uniform_at`), NOT gathered.
 
     Inversion: `ancestors[i] = #{j : rank_j <= i}` (the conjugate of
     rank; equality ties resolve exactly like searchsorted 'left').  With
     rank non-decreasing this is one scatter-max of j+1 into rank's value
     slots followed by a cummax.  counts = first difference of rank.
 
-    Measured on TPU v5e (round 3, on-device scan slope at N=100k): the
-    probe rank is nearly free (cumsum 24 us + 6 probes 29 us vs the
-    167 us merge sort it replaces), but XLA TPU *scatter* serialises —
-    857 us for the scatter-max (613 us even with unique indices) — and
-    every scatter-free inversion of rank -> ancestors reduces to a
-    compaction, which costs another full sort (the two-sort scheme's
-    second sort does exactly this, 106 us).  Net: 945 us vs 323 us for
-    the sort path; this stays the default-off measured-negative
-    alternative (`use_closed_form_resample`).
+    Stays opt-in (`use_closed_form_resample`): the sort path is the
+    default, and the two have not been timed against each other on the
+    GPU yet.
     """
     n = weights.shape[0]
     if n < 8 or n > (1 << 22):  # window-exactness bound; see docstring
@@ -447,15 +433,13 @@ def stratified_resample_closed(key: jax.Array, weights: jnp.ndarray):
 
 
 def stratified_resample_soa(key: jax.Array, weights: jnp.ndarray):
-    """Stratified resampling tuned for TPU: one merged two-key sort plus
-    one stable tag sort yield BOTH the ancestors and the per-particle
-    counts — no scatter, no scan-lowered binary search, and no 1-D
-    gather (``eps[k]`` in the closed-form counts cost ~0.6 ms at N=100k:
-    TPU lane gathers serialise).  Same draw semantics as
+    """Stratified resampling by sorts: one merged sort plus one tag sort
+    yield BOTH the ancestors and the per-particle counts — no scatter, no
+    scan-lowered binary search and no 1-D gather.  Same draw semantics as
     pf.resample.stratified_resample.  The CDF is the chunked
     fixed-association scheme (chunked_cdf_norm) shared with the
-    distributed and Pallas resamplers, so the assignment is identical
-    across all paths (exact, tests/test_distributed_resample.py).
+    distributed resampler, so the assignment is identical across both
+    paths (exact, tests/test_distributed_resample.py).
 
     Scheme: merge-sort [u, cdf] ascending with queries (tag 0) before
     equal cdf entries (side='left').  In merged order, the inclusive
@@ -465,8 +449,7 @@ def stratified_resample_soa(key: jax.Array, weights: jnp.ndarray):
     stable sort by tag then compacts queries (in draw order) to the
     front and cdf entries (in particle order) to the back.
 
-    Both sorts run as single-i32-key UNSTABLE sorts (35% faster on v5e
-    than the two-key / three-operand stable forms):  merge key =
+    Both sorts run as single-i32-key UNSTABLE sorts: merge key =
     float_bits<<1 | tag — u/cdf are non-negative f32 so their bit
     patterns order like the floats, and the tag bit keeps queries ahead
     of bit-equal cdf entries (equal keys are then indistinguishable, so
@@ -474,23 +457,12 @@ def stratified_resample_soa(key: jax.Array, weights: jnp.ndarray):
     (unique), from which the pre-partition position — and with it the
     draws_leq count — is recovered bitwise instead of being carried as
     a second payload.
-
-    Round-3 measured negatives (v5e, slope-timed; both kept out):
-    (a) since u and cdf are each already sorted, sort #1 is logically a
-    MERGE — but an XLA-expressed bitonic merge network (log2(2N)=18
-    reshape+min/max stages) costs 647 us vs 173 us for the native sort
-    at N=100k: each stage is an HBM round trip, while lax.sort is one
-    tuned kernel.  (b) probe-computed ranks (see
-    `stratified_resample_closed`) make sort #1 redundant but every
-    inversion of rank -> ancestors is a compaction = another sort, and
-    XLA TPU scatter serialises (857 us per N-scatter-max).
     """
     n = weights.shape[0]
     # fixed-association chunked CDF — the SAME values the distributed
-    # resampler (parallel.resample) and the Pallas decode path
-    # (pf.pallas_resample.probe_rank) build, so the resampling
-    # assignment is identical across all three paths and across mesh
-    # widths (exact equality pinned in tests/test_distributed_resample.py)
+    # resampler (parallel.resample) builds, so the resampling
+    # assignment is identical across both paths and across mesh widths
+    # (exact equality pinned in tests/test_distributed_resample.py)
     cdf = chunked_cdf_norm(weights, default_cdf_chunk(n))
     eps = jax.random.uniform(key, (n,), weights.dtype)
     u = (jnp.arange(n, dtype=weights.dtype) + eps) / n

@@ -17,7 +17,7 @@ Semantics reproduced exactly:
   * a downgraded marker costs -2 (:2431-2432);
   * the implied (marker, detection) pairs are emitted for the GN refiner.
 
-TPU-first design: the whole bank is weighted in one program —
+Fixed-shape design: the whole bank is weighted in one program —
 projection is a batched einsum, the distance tensor is (N, K, M), and the
 greedy loop becomes an unrolled fixed-M sweep of masked argmin reductions
 over the bank (M <= ~8, so the unroll is cheap and XLA fuses each sweep).

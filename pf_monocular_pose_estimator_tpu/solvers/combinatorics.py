@@ -2,7 +2,7 @@
 
 Replaces the MATLAB-ported runtime enumerators of
 pf_mpe_lib/src/combinations.cpp:34-302 (`combinationsNoReplacement`,
-`permutationsNoReplacement`).  In the TPU design the marker count and the
+`permutationsNoReplacement`).  In this design the marker count and the
 detection capacity are static, so the index tables are precomputed once on
 the host (0-based, unlike the reference's 1-based matrices) and baked into
 the compiled program as constants; the compute path just gathers.

@@ -2,7 +2,7 @@
 
 Functional parity target: P3P::computePoses (pf_mpe_lib/src/p3p.cpp:65-236).
 
-TPU-first design: the reference solves one triple at a time with early
+Batched design: the reference solves one triple at a time with early
 returns; here a whole bank of B triples is solved as fixed-shape array math
 (the `f3_z > 0` frame swap becomes a `where`-select; the collinearity early
 -return becomes a validity mask), so the combinatorial initialiser can

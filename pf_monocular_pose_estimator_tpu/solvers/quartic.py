@@ -3,8 +3,8 @@
 Functional parity target: P3P::solveQuartic (pf_mpe_lib/src/p3p.cpp:238-292)
 — complex Ferrari resolvent, real parts of the four roots returned.
 
-TPU notes: the whole resolvent is elementwise complex arithmetic, so a bank
-of B quartics solves as (B,) complex vectors on the VPU — no per-root loop.
+Design notes: the whole resolvent is elementwise complex arithmetic, so a
+bank of B quartics solves as (B,) complex vectors — no per-root loop.
 Complex dtype follows the input dtype (float32 -> complex64).
 """
 

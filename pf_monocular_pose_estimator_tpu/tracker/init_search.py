@@ -11,7 +11,7 @@ Functional parity targets:
     correspondencesFromHistogram (:1134-1288) with the ambiguity check
     (:2447-2458).
 
-TPU-first redesign: the reference's quadruple nested loop with early
+Fixed-shape redesign: the reference's quadruple nested loop with early
 `continue`s becomes a flat (C(K,3) * P(M,3)) batch: every gate (cluster
 heuristics :1557-1581, P3P validity, duplicate-solution skip :1661-1665,
 finiteness) is a mask, and the histogram is one big masked sum.  The

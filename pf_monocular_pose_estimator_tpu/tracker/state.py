@@ -26,10 +26,9 @@ class TargetState(NamedTuple):
     predicted_pose: jnp.ndarray  # (4,4)
     covariance: jnp.ndarray  # (6,6)
     # Particle banks live in SoA (16, N) layout — 16 row-major pose
-    # entries, particles in the TPU lane dimension (see pf/soa.py).  An
-    # AoS (N, 4, 4) array tiles its 4x4 minor dims onto (sublane, lane)
-    # vector tiles at ~3% utilisation, inflating every copy/select of the
-    # bank ~32x; keeping state natively SoA removes those relayouts.
+    # entries, particles along the minor (contiguous) axis (see
+    # pf/soa.py): every per-particle row op reads one contiguous row,
+    # and keeping state natively SoA avoids AoS<->SoA relayouts.
     bank: jnp.ndarray  # (16, N) PoseParticle
     resampled: jnp.ndarray  # (16, N) newPoseEstimation
     weights: jnp.ndarray  # (N,) normalised particle weights

@@ -32,13 +32,7 @@ from ..ops.exposure import exposure_control
 from ..ops.faults import inject_faults
 from ..pf.propagate import NoiseBounds, propagation_noise_factors
 from ..pf.refine import gauss_newton_refine
-from ..pf.pallas_weight import weight_particles_pallas
-from ..pf.pallas_refine import gauss_newton_refine_pallas
-from ..pf.pallas_step import (
-    bank_restore_pin,
-    bank_top_pin,
-    fused_propagate_weight_pallas,
-)
+from ..pf.pallas_step import fused_propagate_weight_pallas
 from ..pf.weight import weight_particles
 from ..pf.soa import (
     gather_soa,
@@ -49,6 +43,7 @@ from ..pf.soa import (
     unpack,
     weight_particles_soa,
 )
+from ..utils.backend import pf_route
 from ..utils.config import TrackerConfig
 from ..utils.dynamic import DynamicParams
 from ..utils.flags import FailFlag
@@ -150,7 +145,6 @@ def _resample_and_refine(
     predicted,
     pred_trustworthy,
     resample_fn=None,
-    wrap_replicated=None,
     ess_frac=None,
     argmax_idx=None,
 ):
@@ -164,15 +158,10 @@ def _resample_and_refine(
     resample_fn: optional explicit resampler `(key, weights, bank16) ->
     (resampled16, most)`-like (parallel.resample.DistResampleOut) — the
     mesh-sharded step plugs the distributed collective scheme in here.
-    wrap_replicated: optional transform running a fn redundantly per
-    device under manual sharding (parallel.pf_kernels.replicated) — the
-    sharded step routes the replicated-operand GN Pallas kernel through
-    it so GSPMD never has to partition the custom call.
     ess_frac / argmax_idx: optionally precomputed ESS fraction and
-    argmax(weights) from the caller — on the multi-host path each saves
-    a cross-host collective launch per frame (the caller already paid
-    for the raw weight moments and the argmax; DCN launch latency is
-    the dominant 2-host scaling cost, SCALING_PROJECTION_r05)."""
+    argmax(weights) from the caller — on the mesh path each saves a
+    collective per frame (the caller already paid for the raw weight
+    moments and the argmax)."""
     zero_clip = jnp.zeros((), jnp.int32)
     if "resample" in config.debug_skip:
         most = jnp.argmax(weights_norm)
@@ -188,41 +177,11 @@ def _resample_and_refine(
                 # the same branch)
                 out = resample_fn(key, weights_norm, bank16)
                 return out.resampled, out.most, out.clipped.astype(jnp.int32)
-            if config.use_pallas_resample and jax.default_backend() != "cpu":
-                # opt-in sort-free Pallas decode path; its own lax.cond
-                # falls back to the sort path when a weight
-                # concentration exceeds the decode window coverage
-                from ..pf.pallas_resample import resample_bank_pallas
-
-                def _fallback(k, w, b16):
-                    anc, counts, most = stratified_resample_soa(k, w)
-                    return (
-                        bank_restore_pin(gather_soa(bank_top_pin(b16), anc)),
-                        most,
-                    )
-
-                res16, most = resample_bank_pallas(
-                    key, weights_norm, bank16, _fallback
-                )
-                return res16, most, zero_clip
             if config.use_closed_form_resample:
                 anc, counts, most = stratified_resample_closed(key, weights_norm)
             else:
                 anc, counts, most = stratified_resample_soa(key, weights_norm)
-            if jax.default_backend() != "cpu":
-                # confine the gather's transposed-layout preference (see
-                # pf.pallas_step.bank_layout_pin) to the gather itself:
-                # pinning BOTH sides lets XLA run the gather in its fast
-                # {0,1} row-major form (contiguous row reads) while the
-                # conversions stay local instead of propagating {0,1}
-                # through every cond/while the bank crosses.  Only the 12
-                # varying rows travel through the chain; the constant
-                # (0,0,0,1) bottom row is re-synthesised by the restore
-                # pin.
-                res16 = bank_restore_pin(gather_soa(bank_top_pin(bank16), anc))
-            else:
-                res16 = gather_soa(bank16, anc)
-            return res16, most, zero_clip
+            return gather_soa(bank16, anc), most, zero_clip
 
         if config.resample_min_ess > 0.0:
             # ESS-gated resampling (see TrackerConfig.resample_min_ess):
@@ -306,33 +265,19 @@ def _resample_and_refine(
         dfm_h = jnp.concatenate([dfm_base[None], swap_h, drop_h], axis=0)
 
     corr_masks = (dfm_h >= 0) & marker_mask[None, :]  # (H, M)
-    if config.use_pallas_gn and jax.default_backend() != "cpu":
-
-        def _gn(poses0, dxy, dfm_i, masks):
-            return gauss_newton_refine_pallas(
-                camera, poses0, markers_h, dxy, dfm_i, masks,
-                config.gn_max_iterations, config.gn_convergence_tol,
-            )
-
-        gn_call = _gn if wrap_replicated is None else wrap_replicated(_gn)
-        res = gn_call(
-            jnp.broadcast_to(pre_gn[None], (dfm_h.shape[0], 4, 4)),
-            det.xy, dfm_h.astype(jnp.int32), corr_masks,
+    corrs = jnp.concatenate(
+        [
+            jnp.broadcast_to(marker_ids[None, :, None], (*dfm_h.shape, 1)),
+            dfm_h[..., None],
+        ],
+        axis=-1,
+    ).astype(jnp.int32)  # (H, M, 2)
+    res = jax.vmap(
+        lambda c, cm: gauss_newton_refine(
+            camera, pre_gn, markers_h, det.xy, c, cm,
+            config.gn_max_iterations, config.gn_convergence_tol,
         )
-    else:
-        corrs = jnp.concatenate(
-            [
-                jnp.broadcast_to(marker_ids[None, :, None], (*dfm_h.shape, 1)),
-                dfm_h[..., None],
-            ],
-            axis=-1,
-        ).astype(jnp.int32)  # (H, M, 2)
-        res = jax.vmap(
-            lambda c, cm: gauss_newton_refine(
-                camera, pre_gn, markers_h, det.xy, c, cm,
-                config.gn_max_iterations, config.gn_convergence_tol,
-            )
-        )(corrs, corr_masks)
+    )(corrs, corr_masks)
     # selection: a hypothesis is FEASIBLE when every pair's converged
     # residual is below the gate (true bindings land sub-pixel; a
     # clone/wrong binding leaves one pair at 2-5 px).  Among feasible
@@ -407,7 +352,6 @@ def tracker_step(
     dyn: DynamicParams | None = None,
     resample_fn=None,
     pf_fn=None,
-    wrap_replicated=None,
 ):
     """Advance one target by one frame.  Returns (state', FrameResult).
 
@@ -421,10 +365,7 @@ def tracker_step(
       resample_fn — explicit distributed resampler (parallel.resample);
       pf_fn — shard_map'd fused propagate+weight over the particles
         mesh axis (parallel.pf_kernels.make_sharded_pf_fn), replacing
-        the in-line Pallas/SoA dispatch in pf_compute;
-      wrap_replicated — runs replicated-operand Pallas kernels (detect
-        front-end, batched GN) redundantly per device under manual
-        sharding so GSPMD never partitions a custom call."""
+        the in-line kernel/XLA dispatch in pf_compute."""
     if dyn is None:
         dyn = DynamicParams.from_config(config)
     dtype = state.current_pose.dtype
@@ -453,16 +394,12 @@ def tracker_step(
         bool,
     )[: markers_h.shape[0]]
 
-    def _detect_raw(image_, roi_, min_a_, max_a_, thr_):
+    def detect(image_, roi_, min_a_, max_a_, thr_):
         return find_leds(
             image_, roi_, params, camera, min_a_, max_a_, threshold=thr_,
             wh_distortion=dyn.max_width_height_distortion,
             circ_distortion=dyn.max_circular_distortion,
         )
-
-    # every detection pass goes through this hook so the sharded step can
-    # run the Pallas detect front-end under manual sharding
-    detect = _detect_raw if wrap_replicated is None else wrap_replicated(_detect_raw)
 
     # ------------------------------------------------------------- INIT
     def init_branch(state: TargetState):
@@ -684,110 +621,62 @@ def tracker_step(
         m_cap = markers_h.shape[0]
         resampled16 = state.resampled  # state banks are natively SoA
 
+        # the platform's route (utils/backend.py); the stage skips of
+        # debug_skip bisect the XLA path only
+        use_kernel = (
+            pf_route() == "triton"
+            and "propagate" not in config.debug_skip
+            and "weight" not in config.debug_skip
+        )
+
         def pf_compute(it, k):
             """One propagate+weight pass (no best-tracking selects)."""
             inflation = (
                 1.0 + dyn.noise_inflation_per_10_iters * jnp.floor(it / 10.0)
             ).astype(dtype)
             apply_pred = tracking & ((it % 10) != 0)
+            args = (
+                k,
+                resampled16,
+                state.current_pose,
+                predicted,
+                prediction,
+                cam_move_inv,
+                noise,
+                fac_t,
+                fac_r,
+                tracking,
+                apply_pred,
+                inflation,
+            )
+            det_args = (
+                markers_h,
+                marker_mask,
+                det.xy,
+                det.mask,
+                dyn.back_projection_pixel_tolerance_pf.astype(dtype),
+                dyn.back_projection_pixel_tolerance.astype(dtype),
+                downgrade,
+                m_f,
+            )
             if pf_fn is not None:
-                # sharded step: shard_map'd fused Pallas kernel, each
-                # shard on its local bank block with global draws/pins
-                return pf_fn(
-                    k,
-                    resampled16,
-                    state.current_pose,
-                    predicted,
-                    prediction,
-                    cam_move_inv,
-                    noise,
-                    fac_t,
-                    fac_r,
-                    tracking,
-                    apply_pred,
-                    inflation,
-                    markers_h,
-                    marker_mask,
-                    det.xy,
-                    det.mask,
-                    dyn.back_projection_pixel_tolerance_pf.astype(dtype),
-                    dyn.back_projection_pixel_tolerance.astype(dtype),
-                    downgrade,
-                    m_f,
-                )
-            if (
-                config.use_fused_pf_kernel
-                and jax.default_backend() != "cpu"
-                and "propagate" not in config.debug_skip
-                and "weight" not in config.debug_skip
-            ):
-                return fused_propagate_weight_pallas(
-                    k,
-                    resampled16,
-                    state.current_pose,
-                    predicted,
-                    prediction,
-                    cam_move_inv,
-                    noise,
-                    fac_t,
-                    fac_r,
-                    tracking,
-                    apply_pred,
-                    inflation,
-                    camera,
-                    markers_h,
-                    marker_mask,
-                    det.xy,
-                    det.mask,
-                    dyn.back_projection_pixel_tolerance_pf.astype(dtype),
-                    dyn.back_projection_pixel_tolerance.astype(dtype),
-                    downgrade,
-                    m_f,
-                    want_pairs=False,
-                    folded=config.use_folded_pf_kernel,
-                )
+                # sharded step: shard_map'd fused kernel, each shard on
+                # its local bank block with global draws/pins
+                return pf_fn(*args, *det_args)
+            if use_kernel:
+                return fused_propagate_weight_pallas(*args, camera, *det_args)
             if "propagate" in config.debug_skip:
                 bank16 = resampled16 * (1.0 + 1e-12 * inflation)
             else:
-                bank16 = propagate_soa(
-                    k,
-                    resampled16,
-                    state.current_pose,
-                    predicted,
-                    prediction,
-                    cam_move_inv,
-                    noise,
-                    fac_t,
-                    fac_r,
-                    tracking,
-                    apply_pred,
-                    inflation,
-                )
+                bank16 = propagate_soa(*args)
             if "weight" in config.debug_skip:
                 w = jnp.abs(bank16[0]) + 30.0
             else:
-                use_pallas_w = (
-                    config.use_pallas_weight and jax.default_backend() != "cpu"
-                )
-                weight_fn = (
-                    weight_particles_pallas if use_pallas_w else weight_particles_soa
-                )
                 # pairs/ncorr are NOT materialised on the hot path: only
                 # one or two lanes are consumed downstream, recomputed
                 # per-pose via pf.weight.weight_particles instead of
                 # carrying (M, 2, N) through the retry loop
-                w = weight_fn(
-                    camera,
-                    bank16,
-                    markers_h,
-                    marker_mask,
-                    det.xy,
-                    det.mask,
-                    dyn.back_projection_pixel_tolerance_pf.astype(dtype),
-                    dyn.back_projection_pixel_tolerance.astype(dtype),
-                    downgrade,
-                    m_f,
-                )[0]
+                w = weight_particles_soa(camera, bank16, *det_args)[0]
             return bank16, w
 
         def pf_body(carry):
@@ -845,9 +734,8 @@ def tracker_step(
             best_w = jnp.where(engage, best_w * prior, best_w)
             highest = jnp.max(best_w)
 
-        # both weight moments in ONE fused reduce (one all-reduce launch
-        # under GSPMD instead of two — cross-host launch latency is the
-        # dominant 2-host scaling cost, SCALING_PROJECTION_r05); the ESS
+        # both weight moments in ONE fused reduce (one all-reduce under
+        # GSPMD instead of two); the ESS
         # fraction 1/(N*sum(wn^2)) is computed from the raw moments as
         # s1^2/(N*s2), identical in exact arithmetic
         moments = jnp.sum(jnp.stack([best_w, best_w * best_w]), axis=1)
@@ -1013,7 +901,6 @@ def tracker_step(
                     predicted,
                     pred_trustworthy,
                     resample_fn,
-                    wrap_replicated,
                     ess_frac=ess_frac_raw,
                     argmax_idx=best_idx,
                 )

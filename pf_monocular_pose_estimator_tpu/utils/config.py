@@ -35,7 +35,7 @@ class TrackerConfig:
     max_circular_distortion: float = 0.7
     roi_border_thickness: float = 10.0
     active_markers: bool = True
-    max_detections: int = 16  # fixed detection-bank capacity (TPU)
+    max_detections: int = 16  # fixed detection-bank capacity
     cc_sweeps: int = 12
     roi_crop: Tuple[int, int] | None = (192, 256)  # fixed detect crop (h, w)
     # merged-blob splitting (engine extension, ops/blob.py BlobParams):
@@ -69,55 +69,19 @@ class TrackerConfig:
     max_angular_noise: float = 0.02
     marker_downgrade: Tuple[bool, ...] = (False, False, False, False, False)
     use_cam_pos: bool = False
-    # fused Pallas PF weight kernel on TPU (pf/pallas_weight.py); the
-    # XLA SoA path remains for CPU and for GSPMD-sharded banks (the
-    # sharded constructors in parallel/mesh.py force this off — a
-    # pallas_call can't be auto-partitioned over the particles axis)
-    use_pallas_weight: bool = True
-    # fused propagate+weight kernel (pf/pallas_step.py): the whole PF
-    # iteration body runs VMEM-resident per lane chunk on TPU; same
-    # jax.random draws as the XLA path (uniforms pre-drawn outside).
-    # Forced off by the sharded constructors alongside use_pallas_weight.
-    use_fused_pf_kernel: bool = True
-    # sublane-folded fused kernel (pf/pallas_step.py::_make_folded_kernel):
-    # bit-identical math with per-particle rows packed (8, C/8) dense
-    # instead of Mosaic's replicated-sublane (1, C) layout.  Measured on
-    # v5e at N=100k: 2.0x over the straight kernel (436 -> 217 us/call,
-    # 400-iteration on-device scan) — the fold/unfold relayouts are paid
-    # back 8x by dense row ops.
-    use_folded_pf_kernel: bool = True
-    # batched Pallas GN refinement (pf/pallas_refine.py): all hypotheses
-    # and iterations in one dispatch instead of an unrolled ~70-op/iter
-    # XLA body (~800 us/frame of issue overhead at the default budget)
-    use_pallas_gn: bool = True
     # sort-free stratified resampling (pf/soa.py::
     # stratified_resample_closed): replaces the two 2N-element resample
     # sorts with a cumsum + six gathers + one scatter-max.  Same draws
     # and assignment rule; slot-level differences vs the sort path only
     # inside 1-ulp non-monotone pockets of XLA's parallel-scan cumsum
     # (~1e-4 of slots; see the function docstring and tests/test_soa.py).
-    # OFF by default: measured on v5e the in-situ 1-D lane gathers and
-    # the scatter-max serialise (721 -> 161 fps at N=100k) — XLA TPU
-    # gathers/scatters are only fast when a fusion elides them.  The
-    # sort path stays the TPU default; this one suits CPU backends.
+    # OFF by default: the sort path is the reference-exact default; the
+    # speed of the two on the GPU is not measured yet.
     use_closed_form_resample: bool = False
-    # sort-free windowed Pallas resampler (pf/pallas_resample.py):
-    # probe-rank pre-pass + a windowed bisect/dyn-gather decode kernel,
-    # ~190 us vs ~520 us for sort+gather at N=100k on v5e WHEN the
-    # decode windows cover the weight profile.  OFF by default: real
-    # steady-state weight profiles (~40% zero lanes after the tolerance
-    # gate) concentrate enough that blocks overflow the 12-chunk window
-    # and the kernel's own lax.cond then runs the sort fallback anyway —
-    # i.e. for the production profiles this is a measured negative
-    # result kept as an opt-in fast path for weight regimes it does
-    # cover (commit 19b7089; benchmarks/bench_pallas_resample.py).
-    # Ignored on CPU backends and by the mesh-sharded step (which uses
-    # the explicit distributed scheme).
-    use_pallas_resample: bool = False
     # ESS-gated resampling (engine extension; 0.0 = reference parity =
     # resample every accepted frame).  When > 0, the stratified resample
-    # + bank gather (the two costliest non-kernel stages, ~0.45 ms/frame
-    # at N=100k on v5e) run only when the effective sample size fraction
+    # + bank gather (two 2N-element sorts and a bank-wide gather) run
+    # only when the effective sample size fraction
     # ESS/N = 1/(N*sum(w_norm^2)) of the CURRENT frame's weights falls
     # below this threshold; otherwise the bank passes through unchanged
     # and the refinement seed is the argmax-weight particle.  Standard
@@ -125,14 +89,11 @@ class TrackerConfig:
     # self-regulating here because skipped resampling lets the cloud
     # diffuse, which drives ESS down until a resample fires.  Weights
     # are per-frame scores (as in the reference), not accumulated.
-    # Default 0.15, re-tuned round 5 at f32 HEAD precision
-    # (ESS_TUNING_r05.json, tau x degraded_weight_offset x 5 seeds on
-    # the real chip): 0.98 outlier tracked / 6.5 deg mean orientation at
-    # tau=0.15; tau=0.20 degrades (0.955, a 280 mm seed), tau=0.10 is
-    # equivalent but buys less.  Firing rate is bank-size dependent
-    # (benchmarks/ess_dynamics.py at HEAD: ~42% of frames at 100k clean,
-    # ~10% at 50k outlier); the gate is worth +43.8% fps at 100k
-    # (BENCH_SESSION_r05).  reference_parity() keeps 0.0.
+    # Default 0.15, chosen by a tau x degraded_weight_offset x 5-seed
+    # accuracy sweep on the outlier config: tau=0.15 tracked it best;
+    # tau=0.20 degraded it (one seed lost the track) and tau=0.10 was
+    # equivalent.  Its firing rate depends on the bank size; its speed
+    # gain on the GPU is not measured yet.  reference_parity() keeps 0.0.
     resample_min_ess: float = 0.15
     # online exposure control (useOnlineExposeTimeControl / expose_time_base)
     use_online_exposure_control: bool = False
@@ -158,14 +119,14 @@ class TrackerConfig:
     uncertainty_cap: int = 200  # :639
     jump_threshold: float = 0.3  # :693-695
     min_num_leds_detected: int = 4  # pose_estimator.h:104
-    # GN reaches the f32 noise floor in ~5 iterations; on TPU the step
-    # never falls below ~1e-4 (solve jitter), so budget beats tolerance.
-    # <=32 iterations fully unrolls (no while_loop sync overhead on TPU);
-    # typical convergence is 4-10 iterations, masked past convergence.
+    # GN reaches the f32 noise floor in ~5 iterations; in f32 the step
+    # rarely falls below ~1e-4 (solve jitter), so budget beats tolerance.
+    # <=32 iterations fully unrolls (pf/refine.py); typical convergence
+    # is 4-10 iterations, masked past convergence.
     # 25 (not 12): under outlier-heavy frames the extra polish iterations
     # measurably raise the tracked fraction (tests/test_robustness.py)
     gn_max_iterations: int = 25
-    gn_convergence_tol: float = 1e-4  # ~0.1 mm/0.1 mrad step; TPU f32 floors above 1e-6 (ref: 1e-13 in f64)
+    gn_convergence_tol: float = 1e-4  # ~0.1 mm/0.1 mrad step; f32 floors above 1e-6 (ref: 1e-13 in f64)
     # Refine the pair sets of the top-H particles (vmapped GN) and keep
     # the hypothesis with the lowest per-pair residual.  The reference
     # refines only the most-resampled particle (:684-690) — equivalent to
@@ -284,7 +245,7 @@ class TrackerConfig:
     roi_distance_gain: float = 20.0
     roi_retry_growth: float = 20.0
 
-    # --- TPU capacities (new; fixed-shape equivalents of dynamic sizes) ---
+    # --- fixed capacities (new; fixed-shape equivalents of dynamic sizes) ---
     max_candidates_per_led: int = 4  # histogram cartesian-product cap
     # The reference walks the full ranked candidate list (:1733); with
     # outliers the true assignment can rank ~10-30th, so the fixed-shape

@@ -3,7 +3,7 @@
 The reference verifies by replaying recorded rosbags of a real LED-
 carrying UAV (SURVEY.md §4; `pf_mpe/launch/UAV_Target.launch:63-64`
 plays `UAVvsVicon011.bag`).  This script produces the equivalent
-committed artifact for the TPU engine: a pre-rendered 752x480 IR-LED
+committed artifact for this engine: a pre-rendered 752x480 IR-LED
 sequence with ground-truth poses and per-frame expected LED pixels —
 rendered entirely OUTSIDE the engine (cv2.Rodrigues for the trajectory,
 cv2.projectPoints for plumb-bob projection+distortion, numpy Gaussian

@@ -5,7 +5,7 @@ This module exists so the engine can be graded against the *reference's*
 algorithms rather than against itself (round-1 verdict: "the entire
 accuracy story rests on the code grading itself").  Each function is a
 line-faithful port of the cited C++ — scalar loops, early exits, 1-based
-pair indices and all — deliberately NOT the TPU style used in the
+pair indices and all — deliberately NOT the batched array style used in the
 package.  It is never imported by the engine.
 
 Ported functions (all from pf_mpe_lib/src/pose_estimator.cpp unless

@@ -43,6 +43,20 @@ def test_load_experiment_rejects_unknown_fields(tmp_path):
         load_experiment(str(bad))
 
 
+@pytest.mark.parametrize("loader", ["load_experiment", "load_marker_positions"])
+def test_yaml_input_without_pyyaml_fails_clearly(monkeypatch, loader):
+    """PyYAML is optional: the loaders import it only when called, and a
+    YAML input without it fails with an error that names the package."""
+    import sys
+
+    from pf_monocular_pose_estimator_tpu.io import experiment, markers
+
+    monkeypatch.setitem(sys.modules, "yaml", None)  # import yaml -> ImportError
+    load = getattr(experiment if loader == "load_experiment" else markers, loader)
+    with pytest.raises(ImportError, match="PyYAML"):
+        load(os.path.join(REPO, "configs/experiments/uav_target.yaml"))
+
+
 def test_cli_runs_experiment_with_overrides(capsys, tmp_path):
     """CLI --config end-to-end: file supplies camera/markers/tracker,
     explicit flags override frames/particles (roslaunch-arg precedence);

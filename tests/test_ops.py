@@ -213,25 +213,54 @@ def test_merged_blob_split_recovers_two_leds(camera):
     assert xy_off.shape[0] == 1  # merged pair dropped, clean blob kept
 
 
-def test_merged_blob_split_fused_parity(camera):
-    """Fused Pallas detection (interpret mode) matches the XLA path on a
-    merged-blob image, including the split children."""
-    from pf_monocular_pose_estimator_tpu.ops.blob import (
-        BlobParams,
-        _detect_blobs,
-        _detect_blobs_fused,
-    )
+def _scene_image(kind, camera, markers, pose):
+    """(image, roi, params) for the crop-vs-full-frame parity cases."""
+    p = BlobParams(min_blob_area=8.0, max_blob_area=200.0)
+    uv = np.asarray(distort_pixels(camera, project(camera, pose, markers)))
+    lo, hi = uv.min(0) - 15, uv.max(0) + 15
+    roi = jnp.asarray([lo[0], lo[1], hi[0] - lo[0], hi[1] - lo[1]], jnp.float32)
+    if kind == "active":
+        return render_frame(camera, pose, markers), roi, p
+    if kind == "passive":
+        img = 255.0 - render_frame(camera, pose, markers)
+        return img, roi, p._replace(active_markers=False, threshold=60.0)
+    if kind == "roi_masks_one":
+        # an ROI that cuts the left-most blob(s) out: both paths drop them
+        left = uv[:, 0].min()
+        roi = roi.at[0].set(left + 6).at[2].set(hi[0] - left - 6)
+        return render_frame(camera, pose, markers), roi, p
+    if kind == "merged_pair":
+        img = _disc_image([(300, 200), (308, 200), (340, 230)], r=4)
+        return img, jnp.asarray([280, 180, 90, 70], jnp.float32), BlobParams()
+    if kind == "frame_corner":
+        # ROI at the frame corner: the crop window clamps to the frame
+        img = _disc_image([(12, 10), (40, 30), (25, 50)], r=3)
+        return img, jnp.asarray([0, 0, 70, 70], jnp.float32), BlobParams(
+            min_blob_area=8.0
+        )
+    raise ValueError(kind)
 
-    img = _disc_image([(100, 90), (107, 92), (60, 40)], r=4, h=192, w=256)
-    p = BlobParams(roi_crop=None)
-    roi = jnp.asarray([0, 0, 256, 192], jnp.float32)
-    lo, hi = jnp.float32(20.0), jnp.float32(160.0)
-    xy_x, m_x, a_x = _detect_blobs(img, roi, p, lo, hi)
-    xy_f, m_f, a_f = _detect_blobs_fused(img, roi, p, lo, hi, interpret=True)
-    np.testing.assert_array_equal(np.asarray(m_x), np.asarray(m_f))
+
+@pytest.mark.parametrize(
+    "kind", ["active", "passive", "roi_masks_one", "merged_pair", "frame_corner"]
+)
+def test_detect_crop_matches_full_frame(camera, markers, pose, kind):
+    """The XLA detection path on the fixed-size tracking crop (roi_crop)
+    finds exactly what the full-frame pass finds inside the same ROI:
+    same valid mask and order, centroids within 1e-3 px."""
+    img, roi, p = _scene_image(kind, camera, markers, pose)
+    crop = find_leds(img, roi, p._replace(roi_crop=(192, 256)), camera)
+    full = find_leds(img, roi, p._replace(roi_crop=None), camera)
+    np.testing.assert_array_equal(np.asarray(crop.mask), np.asarray(full.mask))
+    m = np.asarray(full.mask)
+    assert m.sum() >= 2, kind
     np.testing.assert_allclose(
-        np.asarray(xy_x)[np.asarray(m_x)], np.asarray(xy_f)[np.asarray(m_f)], atol=0.1
+        np.asarray(crop.xy)[m], np.asarray(full.xy)[m], atol=1e-3
     )
     np.testing.assert_allclose(
-        np.asarray(a_x)[np.asarray(m_x)], np.asarray(a_f)[np.asarray(m_f)], rtol=0.05
+        np.asarray(crop.area)[m], np.asarray(full.area)[m], atol=1e-3
     )
+    if kind == "roi_masks_one":
+        assert m.sum() < markers.shape[0]  # the cut blob is gone in both
+    if kind == "merged_pair":
+        assert m.sum() == 3  # the merged pair split in both paths

@@ -1,6 +1,7 @@
-"""Equivalence of the fused propagate+weight Pallas kernel
-(pf/pallas_step.py, interpret mode) against the XLA pipeline
-`propagate_soa` + `weight_particles_soa` — same keys, same draws."""
+"""The fused propagate+weight kernel (pf/pallas_step.py, Pallas through
+Triton) in the Pallas interpreter against the XLA pipeline
+`propagate_soa` + `weight_particles_soa` — same keys, same draws.  The
+card itself runs the same comparison as a phase of chip_smoke.py."""
 
 import jax
 import jax.numpy as jnp
@@ -41,7 +42,16 @@ def _random_pose(key, scale=0.3):
     )
 
 
-def _setup(seed, n, tracking, apply_pred):
+def _small(key, scale):
+    from pf_monocular_pose_estimator_tpu.geometry.se3 import exp_se3
+
+    return exp_se3(jax.random.normal(key, (6,)) * scale)
+
+
+def _setup(seed, n, tracking, apply_pred, k_cap=16):
+    """A bank of poses scattered around a ground truth, detections at the
+    truth's projected markers (4 of 5 valid, one marker masked), so a
+    real share of the lanes gets a positive weight."""
     key = jax.random.PRNGKey(seed)
     ks = jax.random.split(key, 8)
     markers = jnp.concatenate(
@@ -49,7 +59,6 @@ def _setup(seed, n, tracking, apply_pred):
     ).astype(jnp.float32)
     marker_mask = jnp.array([True, True, True, True, False])
     gt = _random_pose(ks[1])
-    # detections near the truth
     pts = (gt @ markers.T)[:3]
     uv = jnp.stack(
         [
@@ -58,67 +67,63 @@ def _setup(seed, n, tracking, apply_pred):
         ],
         axis=1,
     )
-    det_xy = jnp.zeros((16, 2), jnp.float32).at[:5].set(uv)
-    det_mask = jnp.zeros((16,), bool).at[:4].set(True)
+    det_xy = jnp.zeros((k_cap, 2), jnp.float32).at[:5].set(uv)
+    det_mask = jnp.zeros((k_cap,), bool).at[:4].set(True)
 
-    bank = jax.vmap(lambda k: _random_pose(k, 0.05))(
-        jax.random.split(ks[2], n)
-    )
+    bank = jax.vmap(lambda k: _small(k, 0.01) @ gt)(jax.random.split(ks[2], n))
     bank16 = bank.reshape(n, 16).T
-    cur = _random_pose(ks[3])
-    pred = _random_pose(ks[4])
-    predm = _random_pose(ks[5], 0.01)
-    cmi = _random_pose(ks[6], 0.01)
-    downgrade = jnp.array([False, True, False, False, False])
     return dict(
         key=ks[7],
         bank16=bank16,
-        cur=cur,
-        pred=pred,
-        predm=predm,
-        cmi=cmi,
+        cur=_small(ks[3], 0.01) @ gt,
+        pred=_small(ks[4], 0.01) @ gt,
+        predm=_small(ks[5], 0.003),
+        cmi=_small(ks[6], 0.003),
         markers=markers,
         marker_mask=marker_mask,
         det_xy=det_xy,
         det_mask=det_mask,
-        downgrade=downgrade,
+        downgrade=jnp.array([False, True, False, False, False]),
         tracking=jnp.asarray(tracking),
         apply_pred=jnp.asarray(apply_pred),
     )
 
 
-@pytest.mark.parametrize(
-    "tracking,apply_pred", [(True, True), (True, False), (False, False)]
-)
-@pytest.mark.parametrize("seed,n", [(0, 512), (3, 1024)])
-def test_fused_matches_xla_pipeline(seed, n, tracking, apply_pred):
-    s = _setup(seed, n, tracking, apply_pred)
-    # (3,) per-axis factors, as propagation_noise_factors returns
-    fac_t = jnp.float32(1.3) * jnp.ones((3,), jnp.float32)
-    fac_r = jnp.float32(0.9) * jnp.ones((3,), jnp.float32)
-    infl = jnp.float32(1.1)
-    tol_pf = jnp.float32(18.0)
-    tol_init = jnp.float32(6.0)
+FAC_T = jnp.float32(1.3) * jnp.ones((3,), jnp.float32)
+FAC_R = jnp.float32(0.9) * jnp.ones((3,), jnp.float32)
+INFL = jnp.float32(1.1)
+TOL_PF = jnp.float32(10.0)
+TOL_INIT = jnp.float32(5.0)
 
-    ref_bank = propagate_soa(
+
+def _prop_args(s):
+    return (
         s["key"], s["bank16"], s["cur"], s["pred"], s["predm"], s["cmi"],
-        NOISE, fac_t, fac_r, s["tracking"], s["apply_pred"], infl,
-    )
-    ref_w, ref_pairs, ref_nc = weight_particles_soa(
-        CAM, ref_bank, s["markers"], s["marker_mask"], s["det_xy"],
-        s["det_mask"], tol_pf, tol_init, s["downgrade"],
+        NOISE, FAC_T, FAC_R, s["tracking"], s["apply_pred"], INFL,
     )
 
-    bank, w, pairs, nc = fused_propagate_weight_pallas(
-        s["key"], s["bank16"], s["cur"], s["pred"], s["predm"], s["cmi"],
-        NOISE, fac_t, fac_r, s["tracking"], s["apply_pred"], infl,
-        CAM, s["markers"], s["marker_mask"], s["det_xy"], s["det_mask"],
-        tol_pf, tol_init, s["downgrade"],
-        block=256, interpret=True,
+
+def _det_args(s):
+    return (
+        s["markers"], s["marker_mask"], s["det_xy"], s["det_mask"],
+        TOL_PF, TOL_INIT, s["downgrade"],
     )
 
-    # banks: identical draws => identical propagation (allow -0.0 flips
-    # and last-ulp trig differences)
+
+def _reference(s):
+    bank = propagate_soa(*_prop_args(s))
+    w = weight_particles_soa(CAM, bank, *_det_args(s))[0]
+    return bank, w
+
+
+def _kernel(s, **kw):
+    return fused_propagate_weight_pallas(
+        *_prop_args(s), CAM, *_det_args(s), interpret=True, **kw
+    )
+
+
+def _assert_matches(bank, w, ref_bank, ref_w):
+    # identical draws => identical propagation up to float rounding
     np.testing.assert_allclose(
         np.asarray(bank), np.asarray(ref_bank), rtol=0, atol=1e-6
     )
@@ -129,100 +134,122 @@ def test_fused_matches_xla_pipeline(seed, n, tracking, apply_pred):
     np.testing.assert_allclose(
         np.asarray(w), np.asarray(ref_w), rtol=1e-5, atol=1e-4
     )
-    match = (np.asarray(pairs) == np.asarray(ref_pairs)).all(axis=(0, 1))
-    assert match.mean() > 0.999
-    assert (np.asarray(nc) == np.asarray(ref_nc)).mean() > 0.999
-
-
-def test_fused_weight_consistent_with_pallas_weight():
-    """Feeding the fused kernel's own propagated bank through the
-    standalone weight must reproduce the fused weights exactly."""
-    from pf_monocular_pose_estimator_tpu.pf.pallas_weight import (
-        weight_particles_pallas,
-    )
-
-    s = _setup(11, 512, True, True)
-    tol_pf = jnp.float32(18.0)
-    tol_init = jnp.float32(6.0)
-    bank, w, pairs, nc = fused_propagate_weight_pallas(
-        s["key"], s["bank16"], s["cur"], s["pred"], s["predm"], s["cmi"],
-        NOISE, jnp.float32(1.0), jnp.float32(1.0), s["tracking"],
-        s["apply_pred"], jnp.float32(1.0),
-        CAM, s["markers"], s["marker_mask"], s["det_xy"], s["det_mask"],
-        tol_pf, tol_init, s["downgrade"],
-        block=256, interpret=True,
-    )
-    w2, pairs2, nc2 = weight_particles_pallas(
-        CAM, bank, s["markers"], s["marker_mask"], s["det_xy"],
-        s["det_mask"], tol_pf, tol_init, s["downgrade"],
-        block=256, interpret=True,
-    )
-    np.testing.assert_array_equal(np.asarray(w), np.asarray(w2))
-    np.testing.assert_array_equal(np.asarray(pairs), np.asarray(pairs2))
-    np.testing.assert_array_equal(np.asarray(nc), np.asarray(nc2))
 
 
 @pytest.mark.parametrize(
-    "tracking,apply_pred", [(True, True), (False, False)]
+    "tracking,apply_pred", [(True, True), (True, False), (False, False)]
 )
-@pytest.mark.parametrize("seed,n", [(0, 2048), (5, 4096), (7, 2560)])
-def test_folded_kernel_bit_identical(seed, n, tracking, apply_pred):
-    """The sublane-folded fused kernel computes per-element expressions
-    in the same order as the straight kernel — outputs are bit-identical
-    (interpret mode; on TPU the packing differs but the math does not)."""
+@pytest.mark.parametrize("seed,n", [(0, 511), (3, 1024), (5, 4097)])
+def test_fused_matches_xla_pipeline(seed, n, tracking, apply_pred):
     s = _setup(seed, n, tracking, apply_pred)
-    fac_t = jnp.float32(1.3) * jnp.ones((3,), jnp.float32)
-    fac_r = jnp.float32(0.9) * jnp.ones((3,), jnp.float32)
-    infl = jnp.float32(1.1)
-    tol_pf = jnp.float32(18.0)
-    tol_init = jnp.float32(6.0)
-
-    args = (
-        s["key"], s["bank16"], s["cur"], s["pred"], s["predm"], s["cmi"],
-        NOISE, fac_t, fac_r, s["tracking"], s["apply_pred"], infl,
-        CAM, s["markers"], s["marker_mask"], s["det_xy"], s["det_mask"],
-        tol_pf, tol_init, s["downgrade"],
-    )
-    bank_s, w_s = fused_propagate_weight_pallas(
-        *args, block=1024, interpret=True, want_pairs=False
-    )
-    bank_f, w_f = fused_propagate_weight_pallas(
-        *args, block=1024, interpret=True, want_pairs=False, folded=True
-    )
-    np.testing.assert_array_equal(np.asarray(bank_f), np.asarray(bank_s))
-    np.testing.assert_array_equal(np.asarray(w_f), np.asarray(w_s))
+    ref_bank, ref_w = _reference(s)
+    bank, w = _kernel(s)
+    assert bank.shape == (16, n) and w.shape == (n,)
+    _assert_matches(bank, w, ref_bank, ref_w)
+    assert (np.asarray(ref_w) > 0).mean() > 0.1  # the scene exercises matching
 
 
-def test_bank_top_restore_pin_roundtrip():
-    """The 12-row pin chain (bank_top_pin -> gather -> bank_restore_pin,
-    tracker/step.py resample path) equals the full-bank gather, given the
-    bank bottom-row invariant (flat16 rows 12-15 == (0,0,0,1))."""
-    from pf_monocular_pose_estimator_tpu.pf.soa import gather_soa
-    from pf_monocular_pose_estimator_tpu.pf.pallas_step import (
-        bank_restore_pin,
-        bank_top_pin,
-    )
+@pytest.mark.parametrize("seed,n", [(1, 511), (2, 1024), (4, 4097)])
+def test_fused_masks_penalties_and_clones(seed, n):
+    """Masked marker + masked detections + spurious clone + downgrade —
+    every penalty branch and both mask paths in one scene."""
+    s = _setup(seed, n, True, True)
+    _, plain_w = _reference(s)
+    det_xy = s["det_xy"].at[5].set(s["det_xy"][0] + jnp.asarray([2.0, 1.0]))
+    s["det_xy"] = det_xy.at[6].set(s["det_xy"][1] + jnp.asarray([-1.5, 0.5]))
+    s["det_mask"] = s["det_mask"].at[5].set(True).at[6].set(True).at[2].set(False)
+    ref_bank, ref_w = _reference(s)
+    bank, w = _kernel(s)
+    _assert_matches(bank, w, ref_bank, ref_w)
+    # the clones and the dropped detection change the matching
+    assert not np.allclose(np.asarray(ref_w), np.asarray(plain_w))
 
-    n = 1024
-    keys = jax.random.split(jax.random.PRNGKey(3), n)
-    bank16 = jnp.stack([_random_pose(k).reshape(16) for k in keys[:8]], axis=1)
-    bank16 = jnp.tile(bank16, (1, n // 8))
-    anc = jax.random.randint(jax.random.PRNGKey(9), (n,), 0, n, jnp.int32)
-    anc = jnp.sort(anc)
 
-    want = gather_soa(bank16, anc)
-    # restore of the un-gathered top rows reproduces the bank
-    got = bank_restore_pin(bank_top_pin(bank16, interpret=True), interpret=True)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(bank16))
-    got2 = bank_restore_pin(
-        gather_soa(bank_top_pin(bank16, interpret=True), anc), interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(got2), np.asarray(want))
+def test_fused_no_detections():
+    s = _setup(6, 511, True, True)
+    s["det_mask"] = jnp.zeros_like(s["det_mask"])
+    ref_bank, _ = _reference(s)
+    bank, w = _kernel(s)
+    assert (np.asarray(w) == 0).all()
+    np.testing.assert_allclose(np.asarray(bank), np.asarray(ref_bank), atol=1e-6)
+
+
+def test_fused_traced_tolerances_no_recompile():
+    """Tolerances are traced operands: two different values reuse one
+    compiled executable (the dynamic-params tier, cfg:12-40)."""
+    s = _setup(7, 256, True, True, k_cap=8)
+    calls = []
+
+    @jax.jit
+    def run(tol_pf, tol_init):
+        calls.append(1)
+        det = list(_det_args(s))
+        det[4], det[5] = tol_pf, tol_init
+        return fused_propagate_weight_pallas(
+            *_prop_args(s), CAM, *det, interpret=True
+        )[1]
+
+    w_a = run(jnp.float32(10.0), jnp.float32(5.0))
+    w_b = run(jnp.float32(3.0), jnp.float32(5.0))
+    assert len(calls) == 1  # one trace, two tolerance values
+    assert not np.allclose(w_a, w_b)  # and the tolerance actually bites
+
+
+@pytest.mark.parametrize("block", [64, 128, 512])
+def test_fused_block_size_is_tiling_only(block):
+    """The block size changes only how lanes are tiled into programs (and
+    the masked tail of the last one): results equal the default block's
+    bit for bit."""
+    s = _setup(8, 777, True, True, k_cap=8)
+    bank0, w0 = _kernel(s)
+    bank, w = _kernel(s, block=block)
+    np.testing.assert_array_equal(np.asarray(bank), np.asarray(bank0))
+    np.testing.assert_array_equal(np.asarray(w), np.asarray(w0))
+
+
+def test_fused_rejects_non_power_of_two_block():
+    s = _setup(8, 256, True, True, k_cap=8)
+    with pytest.raises(AssertionError, match="power of two"):
+        _kernel(s, block=96)
+
+
+def test_fused_vmaps_over_targets():
+    """Under vmap (the multi-target tracker) each target's slice equals
+    its own call: marker sets and detections differ per target."""
+    a = _setup(9, 256, True, True, k_cap=8)
+    b = _setup(10, 256, True, False, k_cap=8)
+    stack = lambda k: jnp.stack([a[k], b[k]])  # noqa: E731
+    keys = ("key", "bank16", "cur", "pred", "predm", "cmi", "tracking",
+            "apply_pred", "markers", "marker_mask", "det_xy", "det_mask",
+            "downgrade")
+    batched = {k: stack(k) for k in keys}
+
+    def one(d):
+        return fused_propagate_weight_pallas(
+            *_prop_args(d), CAM, *_det_args(d), interpret=True
+        )
+
+    bank_v, w_v = jax.vmap(one)(batched)
+    for i, s in enumerate((a, b)):
+        bank, w = one(s)
+        np.testing.assert_array_equal(np.asarray(bank_v[i]), np.asarray(bank))
+        np.testing.assert_array_equal(np.asarray(w_v[i]), np.asarray(w))
+
+
+@pytest.mark.gpu
+def test_fused_on_card_matches_xla(gpu_device):
+    """On the card: the compiled Triton kernel against the XLA pipeline."""
+    s = jax.device_put(_setup(0, 100_000, True, True), gpu_device)
+    ref_bank, ref_w = _reference(s)
+    bank, w = fused_propagate_weight_pallas(*_prop_args(s), CAM, *_det_args(s))
+    assert float(jnp.max(jnp.abs(bank - ref_bank))) <= 1e-5
+    assert float(jnp.mean(jnp.abs(w - ref_w) <= 1e-4)) >= 0.9999
 
 
 def test_tracker_bank_bottom_row_invariant():
     """Every pose lane in the tracker's banks keeps the exact rigid
-    bottom row — the invariant the 12-row resample pin chain relies on."""
+    bottom row — the invariant the distributed resampler's 12-row ring
+    payload relies on (parallel/resample.py)."""
     from pf_monocular_pose_estimator_tpu.io.synthetic import (
         demo_markers,
         make_orbit_sequence,
@@ -241,3 +268,42 @@ def test_tracker_bank_bottom_row_invariant():
         state, _ = step(state, seq.frames[i], seq.times[i])
         np.testing.assert_array_equal(np.asarray(state.bank[12:]), const)
         np.testing.assert_array_equal(np.asarray(state.resampled[12:]), const)
+
+
+@pytest.mark.parametrize("block,num_warps,batched", [
+    (128, 4, False), (256, 8, False), (64, 2, True),
+])
+def test_fused_kernel_lowers_to_valid_triton_ir(monkeypatch, block, num_warps, batched):
+    """Lower the kernel for CUDA on the CPU (jax.export) and run the MLIR
+    verifier on the Triton module it generates: type errors that the
+    interpreter cannot see fail here instead of on the card."""
+    from jax._src.pallas.triton import lowering, pallas_call_registration
+
+    verified = []
+    lower = lowering.lower_jaxpr_to_triton_module
+
+    def lower_and_verify(*args, **kw):
+        result = lower(*args, **kw)
+        verified.append(result.module.operation.verify())
+        return result
+
+    monkeypatch.setattr(
+        pallas_call_registration.lowering, "lower_jaxpr_to_triton_module",
+        lower_and_verify,
+    )
+    s = _setup(0, 1000, True, True)
+
+    def call(d):
+        return fused_propagate_weight_pallas(
+            *_prop_args(d), CAM, *_det_args(d), block=block, num_warps=num_warps
+        )
+
+    fn = jax.vmap(call) if batched else call
+    arg = jax.tree.map(lambda x: jnp.stack([x, x]), s) if batched else s
+    jax.export.export(
+        jax.jit(fn), platforms=("cuda",),
+        disabled_checks=[
+            jax.export.DisabledSafetyCheck.custom_call("__gpu$xla.gpu.triton")
+        ],
+    )(arg)
+    assert verified == [True]

@@ -139,17 +139,17 @@ def test_resample_sharded_equivalence():
 
 def test_multihost_entry_single_process():
     """The multi-host launcher wiring (initialize_distributed no-op path,
-    pod mesh over all devices, frame broadcast) runs single-process on
+    job mesh over all devices, frame broadcast) runs single-process on
     the virtual 8-device mesh."""
     import numpy as np
     from pf_monocular_pose_estimator_tpu.parallel.distributed import (
         broadcast_frame,
         initialize_distributed,
-        make_pod_mesh,
+        make_job_mesh,
     )
 
     assert initialize_distributed(None, 1, None) == 0
-    mesh = make_pod_mesh(target_devices=1)
+    mesh = make_job_mesh(target_devices=1)
     assert mesh.devices.size == len(jax.devices())
     frame = np.arange(12, dtype=np.float32).reshape(3, 4)
     arr = broadcast_frame(frame, mesh)
@@ -163,7 +163,7 @@ def test_multihost_two_real_processes(tmp_path):
     """GENUINE multi-process jax.distributed run: two OS processes, two
     virtual CPU devices each (4 global), full sharded tracker with the
     explicit distributed-resampling collectives riding the Gloo backend.
-    This is the CI stand-in for a multi-host pod slice (SURVEY §2
+    This is the CI stand-in for a multi-host job (SURVEY §2
     'collective backend' row) — same code path as
     `python -m ...parallel.distributed` on real hosts."""
     import socket

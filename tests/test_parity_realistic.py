@@ -1,5 +1,5 @@
 """Adversarial A/B: engine vs the CPU reference pipeline on the
-realistic golden (round-5, VERDICT r4 missing #1 / next #2).
+realistic golden.
 
 The reference's operative validation is real-bag replay
 (pf_mpe/launch/UAV_Target.launch:63-64).  Real footage is unobtainable
@@ -12,9 +12,8 @@ settings — so the BASELINE "<= reference ATE" claim is graded exactly
 where the detection front-end is stressed the way
 led_detector.cpp:98-102 exists for.
 
-Measured at HEAD (recorded in ACCURACY_r05.json): oracle 1.0 tracked /
-1.64 mm / 0.34 deg; engine 0.99 tracked / 2.14 mm / 0.46 deg at 500
-particles.  The float64 oracle edges the float32 engine by ~1.3x on
+Measured with benchmarks/realistic_ab.py: oracle 1.0 tracked / 1.64 mm
+/ 0.34 deg; engine 0.99 tracked / 2.14 mm / 0.46 deg at 500 particles.  The float64 oracle edges the float32 engine by ~1.3x on
 this clean-but-cluttered footage (both at mm scale); the engine
 dominates on the fault-injection config (PARITY.md robustness tables).
 The bars below encode that honestly: tracked within one lost frame,

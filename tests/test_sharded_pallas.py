@@ -1,17 +1,16 @@
-"""The mesh-sharded step keeps the Pallas PF kernels (round-4 fix).
+"""The mesh-sharded step runs the fused PF kernel per shard.
 
-Round 3 force-disabled every Pallas kernel under sharding because GSPMD
-cannot partition a pallas_call; parallel/pf_kernels.py now runs the
+GSPMD cannot partition a pallas_call, so parallel/pf_kernels.py runs the
 fused propagate+weight kernel PER SHARD inside a shard_map, with the
-threefry counter stream and the lane-0/1 pins evaluated at GLOBAL lane
-indices.  These tests pin:
+uniform draws and the lane-0/1 pins taken at GLOBAL lane indices.  These
+tests pin, with the kernel in the Pallas interpreter:
 
   * kernel level — concatenated per-shard calls (lane_offset/n_total)
     are BIT-identical to the full-bank call;
-  * step level — the sharded tracker with pf_pallas="interpret" tracks
-    identically (flags) and numerically (few-ulp FMA-contraction
-    tolerance, same as tests/test_pallas_step.py) to the unsharded one
-    over several frames, through init, PF and resampling.
+  * step level — the sharded tracker with interpret=True tracks
+    identically (flags) and numerically (float-rounding tolerance, as
+    in tests/test_pallas_step.py) to the unsharded XLA one over several
+    frames, through init, PF and resampling.
 """
 
 import jax
@@ -76,8 +75,7 @@ def test_lane_offset_shards_bit_identical():
         downgrade=jnp.zeros((5,), bool),
     )
     b_full, w_full = fused_propagate_weight_pallas(
-        key, bank, cur, cur, eye, eye, **common,
-        block=512, interpret=True, want_pairs=False,
+        key, bank, cur, cur, eye, eye, **common, interpret=True,
     )
     shards = 4
     s = n // shards
@@ -85,8 +83,7 @@ def test_lane_offset_shards_bit_identical():
     for i in range(shards):
         b_i, w_i = fused_propagate_weight_pallas(
             key, bank[:, i * s : (i + 1) * s], cur, cur, eye, eye, **common,
-            block=512, interpret=True, want_pairs=False,
-            lane_offset=jnp.int32(i * s), n_total=n,
+            interpret=True, lane_offset=jnp.int32(i * s), n_total=n,
         )
         banks.append(b_i)
         ws.append(w_i)
@@ -116,7 +113,7 @@ def test_sharded_step_with_pallas_matches_unsharded(camera, markers):
     plain = make_tracker(camera, markers, jnp.ones(5, bool), config)
     mesh = make_mesh(particle_devices=4, target_devices=2)
     sharded = make_sharded_tracker(
-        camera, markers, jnp.ones(5, bool), config, mesh, pf_pallas="interpret"
+        camera, markers, jnp.ones(5, bool), config, mesh, interpret=True
     )
 
     s1, s2 = state, shard_target_state(state, mesh)
@@ -131,6 +128,6 @@ def test_sharded_step_with_pallas_matches_unsharded(camera, markers):
         np.testing.assert_allclose(
             np.asarray(s1.bank), np.asarray(s2.bank), atol=1e-4
         )
-        # distributed-resampler clip diagnostic (FrameResult.resample_clipped,
-        # round-5): healthy tracking never exceeds the auto payload window
+        # distributed-resampler clip diagnostic (FrameResult.resample_clipped):
+        # healthy tracking never exceeds the auto payload window
         assert int(r2.resample_clipped) == 0, f"frame {i}"

@@ -176,3 +176,43 @@ def test_stratified_resample_closed_matches_sort_path():
         assert int(np.sum(np.asarray(c2))) <= n
         # ancestors monotone (canonical stratified assignment)
         assert bool(np.all(np.diff(np.asarray(a2)) >= 0))
+
+
+def _weight_profile(kind, n, rng):
+    if kind == "uniform":
+        return np.ones(n)
+    if kind == "spiked":  # a few dominant particles over a small floor
+        w = np.full(n, 1e-3)
+        w[rng.choice(n, 5, replace=False)] = rng.uniform(50, 100, 5)
+        return w
+    if kind == "forty_pct_zero":  # the tolerance gate's steady-state shape
+        return rng.exponential(1.0, n) * (rng.uniform(size=n) > 0.4)
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("n", [1001, 4099])
+@pytest.mark.parametrize("kind", ["uniform", "spiked", "forty_pct_zero"])
+def test_stratified_resamplers_match_numpy_reference(kind, n):
+    """Sort path and closed form against a float64 numpy stratified
+    resampler on the same draws: ancestors agree except where a draw
+    sits within float32 rounding of a CDF boundary; counts are the
+    ancestors' histogram; the most-resampled index has the top count."""
+    from pf_monocular_pose_estimator_tpu.pf.soa import stratified_resample_closed
+
+    rng = np.random.default_rng(n)
+    w = _weight_profile(kind, n, rng)
+    key = jax.random.PRNGKey(n)
+    eps = np.asarray(jax.random.uniform(key, (n,), jnp.float32), np.float64)
+    u = (np.arange(n) + eps) / n
+    cdf = np.cumsum(w) / w.sum()
+    anc_ref = np.minimum(np.searchsorted(cdf, u, side="left"), n - 1)
+
+    w32 = jnp.asarray(w / w.sum(), jnp.float32)
+    for fn in (stratified_resample_soa, stratified_resample_closed):
+        anc, counts, most = (np.asarray(x) for x in jax.jit(fn)(key, w32))
+        assert np.mean(anc != anc_ref) <= 2e-3, fn.__name__
+        assert np.all(np.diff(anc) >= 0), fn.__name__
+        np.testing.assert_array_equal(counts, np.bincount(anc, minlength=n))
+        assert counts[most] == counts.max()
+        if kind != "uniform":  # zero-weight particles are never drawn
+            assert np.all(w[anc] > 0), fn.__name__
